@@ -1,0 +1,482 @@
+"""Drive the PyTorch/CUDA port on one GPU and check it end to end.
+
+    python3 chip_smoke.py                 # the full check, one card
+
+Phases, in order; any failed check raises and the script exits nonzero:
+
+1. build   — compile the three CUDA kernels from src/repro_torch/kernels/csrc.
+2. kernels — hold each kernel against its plain PyTorch version on the card
+             (AdamW and pack bitwise, flash attention to a tolerance), on
+             test shapes and again on every leaf and bucket of the main
+             path, and time kernel, plain version, bound and one library
+             call (the library call is a yardstick only; the port never
+             makes it).
+3. small   — a reduced model at f32 compute trains the same on the card
+             (kernels) as on the CPU (plain versions).
+4. main    — tinyllama-1.1b at full width: train() with an in-process channel
+             into a 2-node async shadow on the card, 6 steps, a failure at
+             step 4; the consolidated checkpoint must equal the trainer's
+             params, mu and nu bit for bit, and every kernel must have run.
+
+Output: a ``main_path`` JSON line, a ``kernels`` JSON line, the card's name
+and power limit, and as the last line ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the repository beside it, it exits nonzero.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+H100_BYTES_PER_S = 3.35e12           # HBM3, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12             # dense tensor cores, bf16
+H100_F32_FLOPS = 67e12               # f32 outside the tensor cores
+
+# The main path's run: global batch 8 x seq 2048 through an in-process
+# channel into a 2-node async shadow on the card. tools/profile_port.py
+# profiles the same run.
+MAIN_RUN = dict(batch=8, seq=2048, shadow_nodes=2, shadow_async=True)
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        fail(msg)
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- phase 1 -----------------------------------------------------------------
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.load()
+    secs = time.perf_counter() - t0
+    print(f"build: {secs:.1f} s (nvcc {build.build_seconds} s)", flush=True)
+    for line in build.ptxas_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print("  ptxas:", line.strip())
+
+
+# -- phase 2 -----------------------------------------------------------------
+
+HYPERS = (dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.0),
+          dict(b1=0.8, b2=0.95, eps=1e-6, wd=0.2))
+
+
+def check_adamw(dev) -> float:
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sizes = (128, 1000, 12345, 38400, 25 * 1024 * 1024 // 4, 1_000_003)
+    def place(t, lead):
+        """A copy of ``t`` starting ``lead`` elements into its buffer
+        (lead=1 takes the kernel's unaligned path)."""
+        buf = torch.empty(t.numel() + lead, dtype=t.dtype, device=dev)
+        view = buf[lead:]
+        view.copy_(t)
+        return view
+
+    worst = 0.0
+    for n in sizes:
+        for pdt in (torch.float32, torch.bfloat16):
+            for hyp in HYPERS:
+                for lead in (0, 1):
+                    p = torch.randn(n, generator=gen, device=dev).to(pdt)
+                    g = torch.randn(n, generator=gen, device=dev)
+                    m = torch.randn(n, generator=gen, device=dev)
+                    v = torch.randn(n, generator=gen, device=dev).abs()
+                    s = ref.adamw_scalars(5, 3e-4, **hyp)
+                    pr, mr, vr = ref.adamw_ref(p, g, m, v, s, 0.75)
+                    pk, gk, mk, vk = (place(t, lead) for t in (p, g, m, v))
+                    ops.fused_adamw_(pk, gk, mk, vk, s, 0.75)
+                    torch.cuda.synchronize()
+                    for a, b, what in ((pk, pr, "p"), (mk, mr, "m"),
+                                       (vk, vr, "v")):
+                        err = (a.float() - b.float()).abs().max().item()
+                        worst = max(worst, err)
+                        check(torch.equal(a, b),
+                              f"adamw {what} n={n} p={pdt} {hyp} lead={lead}"
+                              f" not bitwise equal (max err {err})")
+    print(f"kernels: adamw bitwise equal on {len(sizes)} sizes x 2 dtypes x "
+          f"2 hyperparameter sets x aligned/misaligned", flush=True)
+    return worst
+
+
+def check_pack(dev) -> float:
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sizes = (128, 1000, 12345, 128 * 300)
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        for n_leaves in range(1, 10):
+            leaves = []
+            for i in range(n_leaves):
+                n = sizes[i % len(sizes)] + i      # odd offsets too
+                x = torch.randn(n, generator=gen, device=dev) * 100
+                leaves.append(x.to(dt))
+            offs = np.cumsum([0] + [t.numel() for t in leaves[:-1]]).tolist()
+            total = sum(t.numel() for t in leaves)
+            want = ref.bucket_pack_ref(
+                leaves, offs, torch.zeros(total, dtype=dt, device=dev))
+            got = ops.pack_bucket(leaves, offs,
+                                  torch.zeros(total, dtype=dt, device=dev))
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"pack {dt} with {n_leaves} leaves not exact")
+    print("kernels: pack exact for 1..9 leaves x f32/bf16/int32", flush=True)
+    return 0.0
+
+
+# Flash ``o`` tolerance per dtype, elementwise: |o - ref| <= rtol*|ref| + atol.
+# Both sides round an f32 result to bf16, so they differ by at most one bf16
+# step (2**-7 of the value); the limit scales with |ref| because late causal
+# rows average many values of v and are small.
+FLASH_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (1e-2, 1e-4)}
+
+
+def check_flash(dev) -> float:
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(shape, dt, s=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dt)
+
+    cases = []   # (b, s, h, kv, d, dtype, causal)
+    for b, s, h, d in ((2, 128, 2, 16), (1, 256, 4, 32), (2, 64, 2, 8),
+                       (1, 64, 1, 64)):
+        for causal in (True, False):
+            cases.append((b, s, h, h, d, torch.float32, causal))
+    cases += [(1, 128, 2, 2, 32, torch.bfloat16, True),
+              (1, 128, 1, 1, 16, torch.float32, True),      # 64/32 tiles
+              (1, 100, 8, 2, 64, torch.float32, True),      # ragged, GQA
+              (2, 2048, 32, 4, 64, torch.bfloat16, True)]   # main path
+    worst = 0.0
+    for case in cases:
+        b, s, h, kv, d, dt, causal = case
+        rtol, atol = FLASH_TOL[dt]
+        q, k, v = rnd((b, s, h, d), dt, 0.3), rnd((b, s, kv, d), dt, 0.3), \
+            rnd((b, s, kv, d), dt)
+        o, lse = ops.flash_attention(q, k, v, causal)
+        orf, lref = ref.flash_attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        diff = (o.float() - orf.float()).abs()
+        ratio = (diff / (rtol * orf.float().abs() + atol)).max().item()
+        err = diff.max().item()
+        lerr = (lse - lref).abs().max().item()
+        worst = max(worst, err)
+        check(ratio <= 1.0, f"flash o {case} err {err}: {ratio:.3f} times "
+                            f"the limit {rtol}*|ref| + {atol}")
+        check(lerr <= 1e-4, f"flash lse {case} err {lerr} > 1e-4")
+        if s >= 1024:
+            late = diff[:, s // 2:].max().item()
+            size = orf[:, s // 2:].float().abs().mean().item()
+            print(f"kernels: flash {case}: max err {err}, {ratio:.3f} of the "
+                  f"limit; rows past s/2: max err {late}, mean |o| {size}",
+                  flush=True)
+    print(f"kernels: flash within tolerance on {len(cases)} cases "
+          f"(o: 2e-5 f32, 1e-2*|ref| + 1e-4 bf16; lse 1e-4)", flush=True)
+    return worst
+
+
+def check_main_shapes(dev, p, g, m, v, layout, s) -> dict:
+    """AdamW and pack against their plain versions on the tensors the main
+    path hands them: AdamW on every leaf (the trainer's update) and every
+    bucket flat (the shadow's), pack on every bucket. Both bitwise."""
+    from repro_torch.kernels import ops, ref
+    worst = {"fused_adamw": 0.0, "bucket_pack": 0.0}
+
+    def held(got, want, name, what):
+        err = (got.float() - want.float()).abs().max().item()
+        worst[name] = max(worst[name], err)
+        check(torch.equal(got, want), f"{name} {what} not bitwise equal at "
+                                      f"the main path's shape (max err {err})")
+
+    def adamw(pt, gt, mt, vt, what):
+        pk, mk, vk = pt.clone(), mt.clone(), vt.clone()
+        ops.fused_adamw_(pk, gt, mk, vk, s, 0.75)
+        for got, want, t in zip((pk, mk, vk),
+                                ref.adamw_ref(pt, gt, mt, vt, s, 0.75), "pmv"):
+            held(got, want, "fused_adamw", f"{t} of {what}")
+
+    for k in p:
+        adamw(p[k], g[k], m[k], v[k], f"leaf {k} {tuple(p[k].shape)}")
+    for b in layout.buckets:
+        leaves = {name: [tree[sl.name].reshape(-1) for sl in b.slots]
+                  for name, tree in (("p", p), ("g", g), ("m", m), ("v", v))}
+        offs = [sl.offset for sl in b.slots]
+        flats = {name: ref.bucket_pack_ref(ls, offs,
+                                           torch.zeros(b.size, device=dev))
+                 for name, ls in leaves.items()}
+        got = ops.pack_bucket(leaves["g"], offs, torch.zeros_like(flats["g"]))
+        held(got, flats["g"], "bucket_pack", f"bucket {b.bucket_id}")
+        adamw(flats["p"], flats["g"], flats["m"], flats["v"],
+              f"bucket {b.bucket_id} ({b.size})")
+        del leaves, flats, got
+    torch.cuda.synchronize()
+    print(f"kernels: adamw bitwise equal on the main path's {len(p)} leaves and "
+          f"{len(layout.buckets)} bucket flats; pack exact on its "
+          f"{len(layout.buckets)} buckets", flush=True)
+    return worst
+
+
+def time_kernels(dev, cfg, errs: dict) -> list[dict]:
+    """Each kernel at the main path's shapes: checked against its plain
+    version there, then timed with the plain version, bound and library
+    yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.core.buckets import layout_for_tree
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import registry
+
+    specs = registry.param_specs(cfg)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p = {k: torch.randn(sp.shape, generator=gen, device=dev) * 0.02
+         for k, sp in sorted(specs.items())}
+    g = {k: torch.randn_like(t) * 1e-3 for k, t in p.items()}
+    m = {k: torch.randn_like(t) * 1e-4 for k, t in p.items()}
+    v = {k: (torch.randn_like(t) * 1e-3).square() for k, t in p.items()}
+    n_params = sum(t.numel() for t in p.values())
+    s = ref.adamw_scalars(2, 3e-4)
+    names = list(p)
+    layout = layout_for_tree(g)
+    main_errs = check_main_shapes(dev, p, g, m, v, layout, s)
+    for name, err in main_errs.items():
+        errs[name] = max(errs[name], err)
+    torch.cuda.empty_cache()
+    steps = [torch.tensor(2.0, device=dev) for _ in names]
+    rows = []
+
+    def adamw_kernel():
+        for k in names:
+            ops.fused_adamw_(p[k], g[k], m[k], v[k], s)
+
+    def adamw_plain():
+        for k in names:
+            ref.adamw_ref(p[k], g[k], m[k], v[k], s)
+
+    def adamw_library():
+        torch._fused_adamw_([p[k] for k in names], [g[k] for k in names],
+                            [m[k] for k in names], [v[k] for k in names], [],
+                            steps, lr=3e-4, beta1=0.9, beta2=0.95,
+                            weight_decay=0.1, eps=1e-8, amsgrad=False,
+                            maximize=False)
+    bms, by = bound(28.0 * n_params, 15.0 * n_params, H100_F32_FLOPS)
+    rows.append(dict(
+        name="fused_adamw", source="src/repro_torch/kernels/csrc/fused_adamw.cu",
+        replaces="src/repro/kernels/fused_adamw.py:74",
+        max_abs_err=errs["fused_adamw"], ms=time_ms(adamw_kernel, 5),
+        plain_ms=time_ms(adamw_plain, 3, 1), bound_ms=bms, bound_by=by,
+        library_ms=time_ms(adamw_library, 5)))
+
+    bufs = {b.bucket_id: torch.empty(b.size, device=dev)
+            for b in layout.buckets}
+
+    def per_bucket(fn):
+        def run():
+            for b in layout.buckets:
+                fn([g[sl.name].reshape(-1) for sl in b.slots],
+                   [sl.offset for sl in b.slots], bufs[b.bucket_id])
+        return run
+
+    def cat_out(leaves, offs, out):
+        torch.cat(leaves, out=out)
+    bms, by = bound(8.0 * n_params, 0.0, H100_F32_FLOPS)
+    rows.append(dict(
+        name="bucket_pack", source="src/repro_torch/kernels/csrc/bucket_pack.cu",
+        replaces="src/repro/kernels/bucket_pack.py:34",
+        max_abs_err=errs["bucket_pack"],
+        ms=time_ms(per_bucket(ops.pack_bucket), 5),
+        plain_ms=time_ms(per_bucket(ref.bucket_pack_ref), 5),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(per_bucket(cat_out), 5)))
+    del p, g, m, v, bufs
+    torch.cuda.empty_cache()
+
+    b, sq = MAIN_RUN["batch"] // cfg.microbatches, MAIN_RUN["seq"]
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (torch.randn((b, sq, h, d), generator=gen, device=dev) * 0.3).bfloat16()
+    k = (torch.randn((b, sq, kv, d), generator=gen, device=dev) * 0.3).bfloat16()
+    vv = torch.randn((b, sq, kv, d), generator=gen, device=dev).bfloat16()
+    qt = q.transpose(1, 2)
+    kt = ref.expand_kv(k, h).transpose(1, 2)
+    vt = ref.expand_kv(vv, h).transpose(1, 2)
+    pairs = sq * (sq + 1) / 2                     # causal (q, k) pairs
+    flops = 4.0 * b * h * d * pairs
+    nbytes = 2.0 * (q.numel() * 2 + k.numel() + vv.numel()) + 4.0 * b * h * sq
+    bms, by = bound(nbytes, flops, H100_BF16_FLOPS)
+    rows.append(dict(
+        name="flash_attention",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:80",
+        max_abs_err=errs["flash_attention"],
+        ms=time_ms(lambda: ops.flash_attention(q, k, vv, True), 10),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, vv, True), 3, 1),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 10)))
+    del q, k, vv, qt, kt, vt
+    torch.cuda.empty_cache()
+    for r in rows:
+        r["route"] = "cuda"
+        print(f"timing: {r['name']}: kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return rows
+
+
+# -- phase 3 -----------------------------------------------------------------
+
+def phase_small():
+    """A reduced model trains the same on the card as on the CPU."""
+    from repro_torch import configs
+    from repro_torch.core.recovery import (checkpoint_from_state,
+                                           state_from_checkpoint)
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import make_train_state
+    cfg = configs.get("tinyllama-1.1b").reduced(compute_dtype="float32",
+                                                microbatches=2)
+    init = checkpoint_from_state(make_train_state(cfg, seed=5, device="cpu"))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        _, stats = train(cfg, steps=3, batch=4, seq=64, device=dev, seed=5,
+                         state=state_from_checkpoint(init, dev))
+        losses[dev] = np.array(stats.losses)
+    lc, lg = losses["cpu"], losses["cuda"]
+    check(lg.shape == (3,) and np.all(np.isfinite(lg)),
+          f"small: losses {lg}")
+    # f32 compute on both; sums run in another order on the card
+    check(np.allclose(lg, lc, rtol=1e-4, atol=0),
+          f"small: card losses {lg} vs CPU {lc} beyond rtol 1e-4")
+    print(f"small: reduced model at f32, 3 steps, card losses {lg.tolist()} "
+          f"vs CPU {lc.tolist()} (rtol 1e-4)", flush=True)
+
+
+# -- phase 4 -----------------------------------------------------------------
+
+def phase_main(cfg, steps: int = 6) -> tuple[dict, dict]:
+    from repro_torch.core.channel import InProcessChannel
+    from repro_torch.core.recovery import FailurePlan
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import train
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, stats = train(cfg, steps=steps, channel=InProcessChannel(),
+                         failure_plan=FailurePlan((4,)), seed=0,
+                         device="cuda", **MAIN_RUN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    shadow = stats.checkpointer.shadow
+    sst = shadow.stats()
+    ckpt = shadow.consolidate()
+    shadow.shutdown()
+
+    check(all(math.isfinite(x) for x in stats.losses),
+          f"main: non-finite loss {stats.losses}")
+    check(stats.recoveries == 1, f"main: recoveries {stats.recoveries} != 1")
+    check(ckpt["step"] == steps, f"main: checkpoint at {ckpt['step']}")
+    for tree in ("params", "mu", "nu"):
+        ours = getattr(state, tree)
+        check(set(ckpt[tree]) == set(ours), f"main: {tree} leaf names differ")
+        for k, t in ours.items():
+            check(torch.equal(ckpt[tree][k].to(t.device), t),
+                  f"main: checkpoint {tree}[{k}] not bitwise equal")
+    for name, n in launches.items():
+        check(n > 0, f"main: kernel {name} never launched")
+    ran = stats.steps
+    check(launches["flash_attention"] >= cfg.num_layers * cfg.microbatches * ran,
+          f"main: flash launched {launches['flash_attention']} times")
+    n_params = sum(t.numel() for t in state.params.values())
+    batch, seq = MAIN_RUN["batch"], MAIN_RUN["seq"]
+    out = {
+        "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params": n_params, "batch": batch, "seq": seq,
+        "microbatches": cfg.microbatches, "steps": steps,
+        "steps_run": ran, "recoveries": stats.recoveries,
+        "recovered_at": stats.recovered_at,
+        "losses": stats.losses,
+        "step_ms": stats.steady_iter * 1e3,
+        "step_ms_all": [t * 1e3 for t in stats.iter_times],
+        "tokens_per_s": batch * seq / stats.steady_iter,
+        "capture_ms": float(np.median(stats.capture_times)) * 1e3,
+        "stall_ms": float(np.median(stats.stall_times)) * 1e3,
+        "shadow_mean_apply_ms": sst.mean_apply_s * 1e3,
+        "shadow_max_apply_ms": sst.max_apply_s * 1e3,
+        "shadow_lag": sst.lag,
+        "shadow_max_queue_depth": sst.max_queue_depth,
+        "peak_mem_gb": peak / 1e9,
+        "wall_s": wall,
+        "launches": launches,
+        "checkpoint_bitwise_equal": True,
+    }
+    print(f"main: {cfg.name} {cfg.num_layers}L, {ran} steps run, losses "
+          f"{[round(x, 4) for x in stats.losses]}, checkpoint at step "
+          f"{ckpt['step']} bitwise equal to the trainer", flush=True)
+    return out, launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import configs
+    cfg = configs.get("tinyllama-1.1b")
+    dev = torch.device("cuda")
+
+    phase_build()
+    errs = {"fused_adamw": check_adamw(dev), "bucket_pack": check_pack(dev),
+            "flash_attention": check_flash(dev)}
+    rows = time_kernels(dev, cfg, errs)
+    phase_small()
+    main_out, launches = phase_main(cfg)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"main_path": main_out}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,63 @@
+"""Flash-attention forward wrapper: the CUDA kernel for tensors on the card,
+the plain version (`ref.flash_attention_ref`) for tensors on the CPU.
+
+Returns ``(o, lse)``: the recompute backward of the model's attention
+(`repro_torch.models.layers.FlashAttention`) needs the row log-sum-exp.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import flash_attention_ref
+
+launches = build.LaunchCounter()
+HEAD_DIMS = (8, 16, 32, 64)
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be (b, s, h, d)")
+    b, sq, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if h % k.shape[2]:
+        raise ValueError(f"flash_attention: {k.shape[2]} kv heads do not "
+                         f"divide {h} heads")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention: q, k, v must share float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v on different devices")
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q: (b, sq, h, d); k, v: (b, skv, kv, d) with kv dividing h (kv == h
+    is pre-expanded kv). Causal masking is top-left (qpos >= kpos)."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} is not contiguous")
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = build.load()
+    code = lib.repro_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, sq, skv, h, hkv, d, int(causal),
+        int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d),
+        build.stream_ptr(q.device))
+    build.check(code, "flash_attention")
+    launches.add()
+    return o, lse

@@ -1,0 +1,119 @@
+"""Shared layers of the dense decoder, the port of ``repro.models.layers``:
+norms, RoPE, attention, MLP, embedding, logits and loss.
+
+Matmuls run in the config's compute dtype with f32 softmax and norm
+statistics. Weights keep the JAX package's (d_in, d_out) layout, so a layer
+is ``x @ w``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import causal_mask, expand_kv
+
+_NEG = -1e30
+
+
+def rmsnorm(x, w, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def rope(x, positions, theta: float):
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integer."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=x.device) / half))
+    angles = positions[..., None].float() * freqs          # (..., seq, half)
+    cos = torch.cos(angles)[..., None, :]                  # (..., seq, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool):
+    """Recompute-from-lse backward (the rule of ``repro.models.layers
+    ._flash_bwd``) in plain PyTorch, with GQA kv: the expanded kv's
+    gradients are summed back over each kv head's group."""
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    ke, ve = expand_kv(k, h), expand_kv(v, h)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ke.float()) * scale
+    if causal:
+        s = s.masked_fill(~causal_mask(sq, skv, q.device), _NEG)
+    p = torch.exp(s - lse[..., None])                       # recomputed
+    del s
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype), do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), ve.float())
+    delta = torch.sum(do.float() * o.float(), dim=-1)       # (b, sq, h)
+    ds = (p * (dp - delta.transpose(1, 2)[..., None]) * scale).to(q.dtype)
+    del p, dp
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, ke)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    if kv != h:
+        g = h // kv
+        dk = dk.float().reshape(b, skv, kv, g, d).sum(3).to(k.dtype)
+        dv = dv.float().reshape(b, skv, kv, g, d).sum(3).to(v.dtype)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is the flash kernel (o and lse) and whose
+    backward recomputes the probabilities from lse. q: (b, s, h, d);
+    k, v: (b, s, kv, d), kv dividing h."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = ops.flash_attention(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal)
+        return dq, dk, dv, None
+
+
+def attn_project_qkv(x, lp, cfg, positions):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ lp["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    k = (x @ lp["wk"].to(x.dtype)).reshape(b, s, kv, hd)
+    v = (x @ lp["wv"].to(x.dtype)).reshape(b, s, kv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v.contiguous()
+
+
+def mlp_swiglu(x, lp):
+    g = x @ lp["w_gate"].to(x.dtype)
+    u = x @ lp["w_up"].to(x.dtype)
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ lp["w_down"].to(x.dtype)
+
+
+def embed_tokens(embed, tokens, compute_dtype: torch.dtype):
+    return embed[tokens].to(compute_dtype)
+
+
+def lm_logits(x, unembed):
+    return x @ unembed.to(x.dtype)
+
+
+def xent_loss(logits, labels):
+    """Mean next-token cross entropy."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(lse - ll)

@@ -1,0 +1,228 @@
+"""The port's kernel wrappers on the CPU (their plain PyTorch versions)
+against the JAX package's Pallas kernels in interpret mode and its oracles.
+
+Tolerances: AdamW and flash attention at f32 to rtol 1e-5 / atol 1e-6
+(the JAX package computes ``b1 ** step`` on its device, the port once on
+the host, and the two frameworks sum in other orders); bf16 outputs to one
+bf16 rounding step; the pack is exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.bucket_pack import pack_leaves
+from repro.models.layers import _flash_fwd_core
+
+from repro_torch.convert import to_numpy, to_tensor
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.build import LaunchCounter
+
+torch.set_num_threads(2)   # leave cores to the other test workers
+
+RNG = np.random.default_rng(11)
+HYPERS = [dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.0),
+          dict(b1=0.8, b2=0.95, eps=1e-6, wd=0.2)]
+
+
+def _adamw_inputs(shape, pdtype):
+    p = jnp.asarray(RNG.standard_normal(shape), pdtype)
+    g = jnp.asarray(RNG.standard_normal(shape), jnp.float32)
+    m = jnp.asarray(RNG.standard_normal(shape), jnp.float32)
+    v = jnp.asarray(np.abs(RNG.standard_normal(shape)), jnp.float32)
+    return p, g, m, v
+
+
+@pytest.mark.parametrize("hyp", HYPERS)
+@pytest.mark.parametrize("pdtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("shape", [(128,), (1000,), (257, 129), (4, 33, 7),
+                                   (128 * 256,), (3, 128, 128)])
+def test_fused_adamw_matches_pallas(shape, pdtype, hyp):
+    p, g, m, v = _adamw_inputs(shape, pdtype)
+    po, mo, vo = jops.fused_adamw(p, g, m, v, 5.0, 3e-4, **hyp)
+    tp, tg, tm, tv = (to_tensor(np.asarray(x)) for x in (p, g, m, v))
+    ops.fused_adamw_(tp, tg, tm, tv, ref.adamw_scalars(5, 3e-4, **hyp))
+    np.testing.assert_allclose(to_numpy(tp), np.asarray(po, np.float32),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(to_numpy(tm), np.asarray(mo), rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(to_numpy(tv), np.asarray(vo), rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.37])
+def test_fused_adamw_flat_matches_jax_oracle(scale):
+    """The flat form folds the clip scale in, as ``ops.fused_adamw_flat``."""
+    p, g, m, v = _adamw_inputs((515,), jnp.float32)
+    po, mo, vo = jops.fused_adamw_flat(p, g, m, v, 3.0, 1e-3, scale)
+    tp, tg, tm, tv = (to_tensor(np.asarray(x)) for x in (p, g, m, v))
+    ops.fused_adamw_(tp, tg, tm, tv, ref.adamw_scalars(3, 1e-3), scale)
+    np.testing.assert_allclose(to_numpy(tp), np.asarray(po), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(to_numpy(tm), np.asarray(mo), rtol=1e-5,
+                               atol=1e-7)
+
+
+def test_fused_adamw_wrapper_is_the_plain_version_in_place():
+    """On the CPU the wrapper writes exactly ``adamw_ref``'s result into its
+    inputs, and launches no kernel."""
+    counter = ops.COUNTERS["fused_adamw"].value
+    p, g, m, v = (torch.from_numpy(RNG.standard_normal(777).astype(np.float32))
+                  for _ in range(4))
+    v = v.abs()
+    s = ref.adamw_scalars(7, 2e-3)
+    want = ref.adamw_ref(p, g, m, v, s, 0.5)
+    ops.fused_adamw_(p, g, m, v, s, 0.5)
+    for got, w in zip((p, m, v), want):
+        assert torch.equal(got, w)
+    assert ops.COUNTERS["fused_adamw"].value == counter
+
+
+def test_adamw_scalars_are_f32_and_match_jax():
+    s = ref.adamw_scalars(5, 3e-4, b1=0.9, b2=0.95)
+    for x in s:
+        assert float(np.float32(x)) == x
+    bc1 = float(1.0 - 0.9 ** jnp.float32(5.0))
+    assert s.bc1 == pytest.approx(bc1, rel=1e-6)
+    assert s.omb2 == float(np.float32(1.0 - 0.95))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,d", [(2, 128, 2, 16), (1, 256, 4, 32),
+                                     (2, 64, 2, 8), (1, 64, 1, 64)])
+def test_flash_attention_matches_pallas(b, s, h, d, causal):
+    q, k, v = (jnp.asarray(RNG.standard_normal((b, s, h, d)), jnp.float32)
+               * sc for sc in (0.3, 0.3, 1.0))
+    o_j = jops.flash_attention(q, k, v, causal=causal, block_q=32, block_k=32)
+    _, lse_j = _flash_fwd_core(q, k, v, causal, 0)
+    o, lse = ops.flash_attention(*(to_tensor(np.asarray(x)) for x in (q, k, v)),
+                                 causal)
+    np.testing.assert_allclose(to_numpy(o), np.asarray(o_j), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(to_numpy(lse), np.asarray(lse_j), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_flash_attention_bf16_matches_pallas():
+    b, s, h, d = 1, 128, 2, 32
+    q, k, v = (jnp.asarray(RNG.standard_normal((b, s, h, d)), jnp.bfloat16)
+               * sc for sc in (0.3, 0.3, 1.0))
+    o_j = jops.flash_attention(q, k, v, causal=True, block_q=64, block_k=64)
+    o, _ = ops.flash_attention(*(to_tensor(np.asarray(x)) for x in (q, k, v)),
+                               True)
+    assert o.dtype == torch.bfloat16
+    np.testing.assert_allclose(to_numpy(o), np.asarray(o_j, np.float32),
+                               rtol=0.05, atol=0.05)
+
+
+def test_flash_attention_uneven_blocks_matches_pallas():
+    """Pallas with 64-row q and 32-row kv blocks (the CUDA kernel's tiles)."""
+    b, s, h, d = 1, 128, 1, 16
+    q, k, v = (jnp.asarray(RNG.standard_normal((b, s, h, d)), jnp.float32)
+               * sc for sc in (0.5, 0.5, 1.0))
+    o_j = jops.flash_attention(q, k, v, causal=True, block_q=64, block_k=32)
+    o, _ = ops.flash_attention(*(to_tensor(np.asarray(x)) for x in (q, k, v)),
+                               True)
+    np.testing.assert_allclose(to_numpy(o), np.asarray(o_j), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_attention_gqa_reads_kv_by_head_index():
+    """Unexpanded kv (kv heads dividing h) equals the JAX package's
+    ``expand_kv`` followed by attention."""
+    b, s, h, kv, d = 2, 64, 8, 2, 16
+    q = jnp.asarray(RNG.standard_normal((b, s, h, d)), jnp.float32) * 0.3
+    k = jnp.asarray(RNG.standard_normal((b, s, kv, d)), jnp.float32) * 0.3
+    v = jnp.asarray(RNG.standard_normal((b, s, kv, d)), jnp.float32)
+    ke, ve = jnp.repeat(k, h // kv, axis=2), jnp.repeat(v, h // kv, axis=2)
+    o_j, lse_j = _flash_fwd_core(q, ke, ve, True, 0)
+    o, lse = ops.flash_attention(*(to_tensor(np.asarray(x)) for x in (q, k, v)),
+                                 True)
+    np.testing.assert_allclose(to_numpy(o), np.asarray(o_j), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(to_numpy(lse), np.asarray(lse_j), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_flash_attention_causal_is_top_left():
+    """With sq < skv, row i sees keys 0..i (the kernel's and the model's
+    mask), not the bottom-right alignment of ``repro.kernels.ref``."""
+    q = torch.randn(1, 4, 1, 8)
+    k = torch.randn(1, 8, 1, 8)
+    v = torch.randn(1, 8, 1, 8)
+    o, _ = ops.flash_attention(q, k, v, True)
+    o0, _ = ops.flash_attention(q[:, :1], k[:, :1], v[:, :1], False)
+    torch.testing.assert_close(o[:, :1], o0, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16, jnp.int32])
+@pytest.mark.parametrize("n", [128, 1000, 12345, 128 * 300])
+def test_bucket_pack_matches_pallas_pack_leaves(n, dtype):
+    shapes = [(n,), (3, 4), (7,), (2, 2, 2)]
+    if dtype == jnp.int32:
+        leaves = [jnp.asarray(RNG.integers(-100, 100, s), dtype)
+                  for s in shapes]
+    else:
+        leaves = [jnp.asarray(RNG.standard_normal(s), dtype) for s in shapes]
+    total = sum(x.size for x in leaves)
+    padded = total + (-total) % 128
+    want = np.asarray(pack_leaves(leaves, padded))
+    tl = [to_tensor(np.asarray(x)) for x in leaves]
+    offs = np.cumsum([0] + [t.numel() for t in tl[:-1]]).tolist()
+    out = torch.zeros(padded, dtype=tl[0].dtype)
+    ops.pack_bucket([t.reshape(-1) for t in tl], offs, out)
+    got = to_numpy(out)
+    np.testing.assert_array_equal(got, want.astype(got.dtype))
+    back = jref.bucket_unpack_ref(jnp.asarray(want[:total]),
+                                  [x.shape for x in leaves])
+    for a, t in zip(back, tl):
+        np.testing.assert_array_equal(np.asarray(a).astype(got.dtype),
+                                      to_numpy(t))
+
+
+def test_bucket_pack_rejects_what_the_kernel_does_not_take():
+    out = torch.zeros(10)
+    with pytest.raises(TypeError):
+        ops.pack_bucket([torch.zeros(3, dtype=torch.bfloat16)], [0], out)
+    with pytest.raises(ValueError):
+        ops.pack_bucket([torch.zeros(6)], [5], out)
+    with pytest.raises(ValueError):
+        ops.pack_bucket([torch.zeros(4, 2).t()], [0], out)
+
+
+def test_launch_counter_counts_and_resets():
+    c = LaunchCounter()
+    c.add()
+    c.add()
+    assert c.value == 2
+    c.reset()
+    assert c.value == 0
+
+
+def test_optimizer_functions_match_jax():
+    """``adamw_leaf``/``adamw_flat`` (plain versions), ``global_norm`` and
+    the cosine schedule against the JAX package's."""
+    from repro.optim import functional as jf
+    from repro.optim import schedules as js
+    from repro_torch.optim import functional as tf
+    from repro_torch.optim import schedules as ts
+    p, g, m, v = _adamw_inputs((300,), jnp.float32)
+    tp, tg, tm, tv = (to_tensor(np.asarray(x)) for x in (p, g, m, v))
+    cases = ((jf.adamw_leaf(p, g, m, v, 4.0, jf.OptimizerConfig(), 1e-3),
+              tf.adamw_leaf(tp, tg, tm, tv, 4, tf.OptimizerConfig(), 1e-3)),
+             (jf.adamw_flat(p, g, m, v, 4.0, jf.OptimizerConfig(), 1e-3, 0.5),
+              tf.adamw_flat(tp, tg, tm, tv, 4, tf.OptimizerConfig(), 1e-3,
+                            0.5)))
+    for want, got in cases:
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(to_numpy(a), np.asarray(b), rtol=1e-5,
+                                       atol=1e-6)
+    assert float(tf.global_norm({"g": tg, "m": tm})) == pytest.approx(
+        float(jf.global_norm({"g": g, "m": m})), rel=1e-5)
+    jlr, tlr = js.cosine_schedule(1e-3, 10, 100), ts.cosine_schedule(1e-3, 10,
+                                                                     100)
+    for step in (0, 3, 10, 40, 100, 130):
+        assert tlr(step) == pytest.approx(float(jlr(step)), rel=1e-6)

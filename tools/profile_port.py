@@ -1,0 +1,121 @@
+"""Where a training step's device time goes in the PyTorch/CUDA port.
+
+    python3 tools/profile_port.py
+
+Runs the main path of ``chip_smoke.py`` (tinyllama-1.1b, all 22 layers, with
+its ``MAIN_RUN``: global batch 8 x seq 2048 through an in-process channel
+into a 2-node async shadow on the card), warms up for 2 steps, then records
+2 steps with ``torch.profiler``. Prints one
+JSON line: wall ms per step, device busy ms (the union of kernel and copy
+intervals over all streams) and idle share, device time by category, and
+the kernels that take the most device time. Needs one GPU.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from chip_smoke import MAIN_RUN  # noqa: E402
+
+WARMUP, STEPS = 2, 2
+
+CATEGORIES = (                 # first match wins, on the lower-cased name
+    ("flash_fwd (port kernel)", ("flash_fwd_kernel",)),
+    ("adamw (port kernel)", ("adamw_kernel",)),
+    ("bucket_pack (port kernel)", ("pack_kernel",)),
+    ("matmul (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "nvjet")),
+    ("copy host<->device", ("memcpy htod", "memcpy dtoh")),
+    ("copy device", ("memcpy dtod", "memset")),
+)
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "other (elementwise, reductions, softmax)"
+
+
+def union_ms(intervals) -> float:
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e3
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_port: needs a GPU")
+    from repro_torch import configs
+    from repro_torch.core.channel import InProcessChannel
+    from repro_torch.train.loop import train
+
+    cfg = configs.get("tinyllama-1.1b")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def hook(step, state, stats):
+        if step == WARMUP:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif step == WARMUP + STEPS:
+            torch.cuda.synchronize()
+            window["t1"] = time.perf_counter()
+            prof.stop()
+
+    _, stats = train(cfg, steps=WARMUP + STEPS, channel=InProcessChannel(),
+                     step_hook=hook, device="cuda", **MAIN_RUN)
+    stats.checkpointer.shadow.shutdown()
+
+    by_name = defaultdict(float)
+    intervals = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dur = e.time_range.end - e.time_range.start
+        by_name[e.name] += dur / 1e3
+        intervals.append((e.time_range.start, e.time_range.end))
+    if not intervals:
+        raise SystemExit("profile_port: the profiler recorded no device time")
+    by_cat = defaultdict(float)
+    for name, ms in by_name.items():
+        by_cat[category(name)] += ms
+    wall = (window["t1"] - window["t0"]) * 1e3 / STEPS
+    busy = union_ms(intervals) / STEPS
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(json.dumps({
+        "card": smi, "layers": cfg.num_layers, "steps": STEPS,
+        "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+        "idle_share": 1.0 - busy / wall,
+        "device_ms_per_step_by_category": {
+            k: v / STEPS for k, v in sorted(by_cat.items(),
+                                                 key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_step": [(n[:90], ms / STEPS)
+                                    for n, ms in top],
+        "iter_ms": [t * 1e3 for t in stats.iter_times],
+    }))
+
+
+if __name__ == "__main__":
+    main()
