@@ -4,9 +4,10 @@
 
 Phases, in order; any failed check raises and the script exits nonzero:
 
-1. build   — compile the three CUDA kernels from src/repro_torch/kernels/csrc.
+1. build   — compile the CUDA kernels from src/repro_torch/kernels/csrc;
+             the tensor-core flash kernel must not spill.
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             (AdamW and pack bitwise, flash attention to a tolerance), on
+             (AdamW and pack bitwise, both flash kernels to a tolerance), on
              test shapes and again on every leaf and bucket of the main
              path, and time kernel, plain version, bound and one library
              call (the library call is a yardstick only; the port never
@@ -16,9 +17,12 @@ Phases, in order; any failed check raises and the script exits nonzero:
 4. main    — tinyllama-1.1b at full width: train() with an in-process channel
              into a 2-node async shadow on the card, 6 steps, a failure at
              step 4; the consolidated checkpoint must equal the trainer's
-             params, mu and nu bit for bit, and every kernel must have run.
+             params, mu and nu bit for bit, every kernel of the path must
+             have run, the tensor-core flash kernel 2 x layers x
+             microbatches times a step and the SIMT flash kernel never.
 
-Output: a ``main_path`` JSON line, a ``kernels`` JSON line, the card's name
+Output: a ``main_path`` JSON line, a ``flash_d128`` and a ``pack_host``
+timing line, a ``kernels`` JSON line, the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, it exits nonzero.
 """
@@ -85,9 +89,15 @@ def phase_build():
     build.load()
     secs = time.perf_counter() - t0
     print(f"build: {secs:.1f} s (nvcc {build.build_seconds} s)", flush=True)
+    fn = None
     for line in build.ptxas_log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
+        if fn and "flash_fwd_kernel_wgmma" in fn and "spill" in line:
+            check(" 0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"build: {fn} spills: {line.strip()}")
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -139,7 +149,7 @@ def check_pack(dev) -> float:
     gen = torch.Generator(device=dev).manual_seed(2)
     sizes = (128, 1000, 12345, 128 * 300)
     for dt in (torch.float32, torch.bfloat16, torch.int32):
-        for n_leaves in range(1, 10):
+        for n_leaves in (*range(1, 10), 200):     # 200: two launches
             leaves = []
             for i in range(n_leaves):
                 n = sizes[i % len(sizes)] + i      # odd offsets too
@@ -149,12 +159,17 @@ def check_pack(dev) -> float:
             total = sum(t.numel() for t in leaves)
             want = ref.bucket_pack_ref(
                 leaves, offs, torch.zeros(total, dtype=dt, device=dev))
+            before = ops.COUNTERS["bucket_pack"].value
             got = ops.pack_bucket(leaves, offs,
                                   torch.zeros(total, dtype=dt, device=dev))
             torch.cuda.synchronize()
             check(torch.equal(got, want),
                   f"pack {dt} with {n_leaves} leaves not exact")
-    print("kernels: pack exact for 1..9 leaves x f32/bf16/int32", flush=True)
+            n = ops.COUNTERS["bucket_pack"].value - before
+            check(n == -(-n_leaves // 128),
+                  f"pack {dt} with {n_leaves} leaves: {n} launches")
+    print("kernels: pack exact for 1..9 and 200 leaves x f32/bf16/int32",
+          flush=True)
     return 0.0
 
 
@@ -162,11 +177,17 @@ def check_pack(dev) -> float:
 # Both sides round an f32 result to bf16, so they differ by at most one bf16
 # step (2**-7 of the value); the limit scales with |ref| because late causal
 # rows average many values of v and are small.
+# The head_dim-128 shape timed beside the main path's (the dense configs
+# after tinyllama have head_dim 128): (b, s, h, kv, d, dtype, causal).
+FLASH_D128 = (1, 2048, 32, 8, 128, torch.bfloat16, True)
 FLASH_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (1e-2, 1e-4)}
 
 
-def check_flash(dev) -> float:
+def check_flash(dev) -> dict:
+    """Both flash kernels against the plain version; returns the worst
+    error in ``o`` of each."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import route
     gen = torch.Generator(device=dev).manual_seed(3)
 
     def rnd(shape, dt, s=1.0):
@@ -179,31 +200,41 @@ def check_flash(dev) -> float:
             cases.append((b, s, h, h, d, torch.float32, causal))
     cases += [(1, 128, 2, 2, 32, torch.bfloat16, True),
               (1, 128, 1, 1, 16, torch.float32, True),      # 64/32 tiles
-              (1, 100, 8, 2, 64, torch.float32, True),      # ragged, GQA
-              (2, 2048, 32, 4, 64, torch.bfloat16, True)]   # main path
-    worst = 0.0
+              (1, 100, 8, 2, 64, torch.float32, True)]      # ragged, GQA
+    for d in (64, 128):              # the tensor-core kernel: ragged s,
+        for causal in (True, False):  # GQA 8:1 and 1:1
+            cases += [(1, 100, 8, 1, d, torch.bfloat16, causal),
+                      (1, 1000, 8, 8, d, torch.bfloat16, causal)]
+    cases += [(2, 2048, 32, 4, 64, torch.bfloat16, True),   # main path
+              FLASH_D128]
+    worst = {"flash_attention_wgmma": 0.0, "flash_attention_simt": 0.0}
     for case in cases:
         b, s, h, kv, d, dt, causal = case
         rtol, atol = FLASH_TOL[dt]
         q, k, v = rnd((b, s, h, d), dt, 0.3), rnd((b, s, kv, d), dt, 0.3), \
             rnd((b, s, kv, d), dt)
+        name = f"flash_attention_{route(dt, d)}"
+        before = ops.launch_counts()
         o, lse = ops.flash_attention(q, k, v, causal)
+        ran = {n: c - before[n] for n, c in ops.launch_counts().items()}
+        check(ran[name] == 1 and sum(ran.values()) == 1,
+              f"flash {case}: launched {ran}, not {name} once")
         orf, lref = ref.flash_attention_ref(q, k, v, causal)
         torch.cuda.synchronize()
         diff = (o.float() - orf.float()).abs()
         ratio = (diff / (rtol * orf.float().abs() + atol)).max().item()
         err = diff.max().item()
         lerr = (lse - lref).abs().max().item()
-        worst = max(worst, err)
+        worst[name] = max(worst[name], err)
         check(ratio <= 1.0, f"flash o {case} err {err}: {ratio:.3f} times "
                             f"the limit {rtol}*|ref| + {atol}")
         check(lerr <= 1e-4, f"flash lse {case} err {lerr} > 1e-4")
         if s >= 1024:
             late = diff[:, s // 2:].max().item()
             size = orf[:, s // 2:].float().abs().mean().item()
-            print(f"kernels: flash {case}: max err {err}, {ratio:.3f} of the "
-                  f"limit; rows past s/2: max err {late}, mean |o| {size}",
-                  flush=True)
+            print(f"kernels: flash {case} ({name}): max err {err}, "
+                  f"{ratio:.3f} of the limit; rows past s/2: max err {late}, "
+                  f"mean |o| {size}", flush=True)
     print(f"kernels: flash within tolerance on {len(cases)} cases "
           f"(o: 2e-5 f32, 1e-2*|ref| + 1e-4 bf16; lse 1e-4)", flush=True)
     return worst
@@ -250,13 +281,13 @@ def check_main_shapes(dev, p, g, m, v, layout, s) -> dict:
     return worst
 
 
-def time_kernels(dev, cfg, errs: dict) -> list[dict]:
+def time_kernels(dev, cfg, errs: dict) -> tuple[list[dict], dict, dict]:
     """Each kernel at the main path's shapes: checked against its plain
     version there, then timed with the plain version, bound and library
-    yardstick."""
-    import torch.nn.functional as F
+    yardstick. Returns the kernels' rows, the tensor-core flash kernel's
+    row at head_dim 128, and the pack wrapper's host time per call."""
     from repro_torch.core.buckets import layout_for_tree
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import bucket_pack, ops, ref
     from repro_torch.models import registry
 
     specs = registry.param_specs(cfg)
@@ -311,48 +342,98 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
 
     def cat_out(leaves, offs, out):
         torch.cat(leaves, out=out)
+    # the kernel alone: every bucket's launch tables built beforehand
+    tables = [(bucket_pack.table(plan), bufs[b.bucket_id])
+              for b in layout.buckets
+              for plan in bucket_pack.launch_plan(
+                  [g[sl.name].reshape(-1) for sl in b.slots],
+                  [sl.offset for sl in b.slots], 4)]
+
+    def pack_launches():
+        for t, out in tables:
+            bucket_pack.launch(t, out)
     bms, by = bound(8.0 * n_params, 0.0, H100_F32_FLOPS)
     rows.append(dict(
         name="bucket_pack", source="src/repro_torch/kernels/csrc/bucket_pack.cu",
         replaces="src/repro/kernels/bucket_pack.py:34",
-        max_abs_err=errs["bucket_pack"],
-        ms=time_ms(per_bucket(ops.pack_bucket), 5),
+        max_abs_err=errs["bucket_pack"], ms=time_ms(pack_launches, 5),
         plain_ms=time_ms(per_bucket(ref.bucket_pack_ref), 5),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(per_bucket(cat_out), 5)))
-    del p, g, m, v, bufs
+    # the wrapper's host time per call: with the kernel (a sync after each
+    # call), and the enqueue alone
+    with_sync, enqueue = [], []
+    for _ in range(5):
+        for b in layout.buckets:
+            leaves = [g[sl.name].reshape(-1) for sl in b.slots]
+            offs = [sl.offset for sl in b.slots]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ops.pack_bucket(leaves, offs, bufs[b.bucket_id])
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            enqueue.append((t1 - t0) * 1e3)
+            with_sync.append((t2 - t0) * 1e3)
+    host = {"calls": len(enqueue), "buckets": len(layout.buckets),
+            "enqueue_ms_per_call": float(np.mean(enqueue)),
+            "with_sync_ms_per_call": float(np.mean(with_sync)),
+            "kernel_ms_per_step": rows[-1]["ms"]}
+    print(f"timing: bucket_pack host per call: enqueue "
+          f"{host['enqueue_ms_per_call']:.4f} ms, with the kernel and a sync "
+          f"{host['with_sync_ms_per_call']:.4f} ms", flush=True)
+    del p, g, m, v, bufs, tables
     torch.cuda.empty_cache()
 
     b, sq = MAIN_RUN["batch"] // cfg.microbatches, MAIN_RUN["seq"]
-    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (torch.randn((b, sq, h, d), generator=gen, device=dev) * 0.3).bfloat16()
-    k = (torch.randn((b, sq, kv, d), generator=gen, device=dev) * 0.3).bfloat16()
-    vv = torch.randn((b, sq, kv, d), generator=gen, device=dev).bfloat16()
-    qt = q.transpose(1, 2)
-    kt = ref.expand_kv(k, h).transpose(1, 2)
-    vt = ref.expand_kv(vv, h).transpose(1, 2)
-    pairs = sq * (sq + 1) / 2                     # causal (q, k) pairs
-    flops = 4.0 * b * h * d * pairs
-    nbytes = 2.0 * (q.numel() * 2 + k.numel() + vv.numel()) + 4.0 * b * h * sq
-    bms, by = bound(nbytes, flops, H100_BF16_FLOPS)
-    rows.append(dict(
-        name="flash_attention",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:80",
-        max_abs_err=errs["flash_attention"],
-        ms=time_ms(lambda: ops.flash_attention(q, k, vv, True), 10),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, vv, True), 3, 1),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 10)))
-    del q, k, vv, qt, kt, vt
-    torch.cuda.empty_cache()
-    for r in rows:
+    main_shape = (b, sq, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    rows.append(flash_row(dev, gen, "flash_attention_wgmma", main_shape,
+                          torch.bfloat16, errs))
+    rows.append(flash_row(dev, gen, "flash_attention_simt", main_shape,
+                          torch.float32, errs))
+    d128 = flash_row(dev, gen, "flash_attention_wgmma", FLASH_D128[:5],
+                     torch.bfloat16, errs)
+    d128["shape"] = FLASH_D128[:5]
+    for r in rows + [d128]:
         r["route"] = "cuda"
         print(f"timing: {r['name']}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
-    return rows
+    return rows, d128, host
+
+
+def flash_row(dev, gen, name, shape, dt, errs) -> dict:
+    """One flash kernel timed at (b, s, h, kv, d), causal, beside its plain
+    version and SDPA on kv expanded to h heads."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    b, sq, h, kv, d = shape
+    q = (torch.randn((b, sq, h, d), generator=gen, device=dev) * 0.3).to(dt)
+    k = (torch.randn((b, sq, kv, d), generator=gen, device=dev) * 0.3).to(dt)
+    v = torch.randn((b, sq, kv, d), generator=gen, device=dev).to(dt)
+    qt = q.transpose(1, 2)
+    kt = ref.expand_kv(k, h).transpose(1, 2)
+    vt = ref.expand_kv(v, h).transpose(1, 2)
+    pairs = sq * (sq + 1) / 2                     # causal (q, k) pairs
+    flops = 4.0 * b * h * d * pairs
+    item = q.element_size()
+    nbytes = item * (q.numel() * 2 + k.numel() + v.numel()) + 4.0 * b * h * sq
+    bms, by = bound(nbytes, flops, H100_BF16_FLOPS if dt == torch.bfloat16
+                    else H100_F32_FLOPS)
+    src = {"flash_attention_wgmma": "flash_attention_wgmma.cu",
+           "flash_attention_simt": "flash_attention.cu"}[name]
+    row = dict(
+        name=name, source=f"src/repro_torch/kernels/csrc/{src}",
+        replaces="src/repro/kernels/flash_attention.py:80",
+        max_abs_err=errs[name],
+        ms=time_ms(lambda: ops.flash_attention(q, k, v, True), 10),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, True), 3, 1),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 10))
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -414,11 +495,18 @@ def phase_main(cfg, steps: int = 6) -> tuple[dict, dict]:
         for k, t in ours.items():
             check(torch.equal(ckpt[tree][k].to(t.device), t),
                   f"main: checkpoint {tree}[{k}] not bitwise equal")
-    for name, n in launches.items():
-        check(n > 0, f"main: kernel {name} never launched")
     ran = stats.steps
-    check(launches["flash_attention"] >= cfg.num_layers * cfg.microbatches * ran,
-          f"main: flash launched {launches['flash_attention']} times")
+    for name, n in launches.items():
+        if name != "flash_attention_simt":
+            check(n > 0, f"main: kernel {name} never launched")
+    # forward and remat recompute, per layer and microbatch, every step
+    want = 2 * cfg.num_layers * cfg.microbatches * ran
+    check(launches["flash_attention_wgmma"] == want,
+          f"main: tensor-core flash launched "
+          f"{launches['flash_attention_wgmma']} times, not {want}")
+    check(launches["flash_attention_simt"] == 0,
+          f"main: SIMT flash launched {launches['flash_attention_simt']} "
+          f"times on the bf16 path")
     n_params = sum(t.numel() for t in state.params.values())
     batch, seq = MAIN_RUN["batch"], MAIN_RUN["seq"]
     out = {
@@ -459,8 +547,8 @@ def main():
 
     phase_build()
     errs = {"fused_adamw": check_adamw(dev), "bucket_pack": check_pack(dev),
-            "flash_attention": check_flash(dev)}
-    rows = time_kernels(dev, cfg, errs)
+            **check_flash(dev)}
+    rows, d128, pack_host = time_kernels(dev, cfg, errs)
     phase_small()
     main_out, launches = phase_main(cfg)
     for r in rows:
@@ -468,6 +556,9 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"main_path": main_out}))
+    print(json.dumps({"flash_d128": {k: d128[k] for k in keys[:4] + keys[5:]
+                                     + ("shape",)}}))
+    print(json.dumps({"pack_host": pack_host}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

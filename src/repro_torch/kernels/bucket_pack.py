@@ -1,17 +1,80 @@
 """Bucket pack wrapper: the CUDA gather kernel for tensors on the card, the
 plain version (`ref.bucket_pack_ref`) for tensors on the CPU.
 
-One launch writes every leaf of a bucket into the bucket's flat buffer at
-its element offset (`repro_torch.core.buckets.LeafSlot.offset`).
+One launch writes up to 128 leaves of a bucket into the bucket's flat
+buffer at their element offsets (`repro_torch.core.buckets.LeafSlot.offset`);
+:func:`launch_plan` cuts a bucket into such launches. The leaf table goes to
+the kernel by value, so a launch copies nothing from host to device first.
 """
 from __future__ import annotations
 
-import torch
+from typing import NamedTuple
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import bucket_pack_ref
 
 launches = build.LaunchCounter()
+CHUNK = 16                  # bytes; the kernel's grid is over these
+CHUNKS_PER_BLOCK = 512      # kChunksPerBlock in csrc/bucket_pack.cu
+MAX_CHUNKS = 2 ** 31        # per launch, so chunk indices fit the kernel's
+
+
+class LaunchPlan(NamedTuple):
+    """One launch: ``rows[i] = (source address, destination byte offset,
+    byte count)`` of leaf ``leaves[i]``; ``first[i]`` counts the 16-byte
+    chunks of rows 0..i-1 (the last chunk of a row may be partial)."""
+    leaves: list[int]
+    rows: list[tuple[int, int, int]]
+    first: list[int]
+
+    def blocks(self) -> int:
+        return -(-self.first[-1] // CHUNKS_PER_BLOCK)
+
+
+def launch_plan(leaves, offsets, item: int) -> list[LaunchPlan]:
+    """The launches that pack ``leaves`` (flat tensors, ``item`` bytes an
+    element) at element ``offsets``: at most ``build.MAX_PACK_LEAVES`` rows
+    and ``MAX_CHUNKS`` chunks each, empty leaves dropped."""
+    plans: list[LaunchPlan] = []
+    cur = LaunchPlan([], [], [0])
+    for i, (leaf, off) in enumerate(zip(leaves, offsets)):
+        nbytes = leaf.numel() * item
+        if not nbytes:
+            continue
+        chunks = -(-nbytes // CHUNK)
+        if chunks > MAX_CHUNKS:
+            raise ValueError(f"bucket_pack: a leaf of {nbytes} bytes is "
+                             f"larger than one launch takes")
+        if cur.rows and (len(cur.rows) == build.MAX_PACK_LEAVES
+                         or cur.first[-1] + chunks > MAX_CHUNKS):
+            plans.append(cur)
+            cur = LaunchPlan([], [], [0])
+        cur.leaves.append(i)
+        cur.rows.append((leaf.data_ptr(), off * item, nbytes))
+        cur.first.append(cur.first[-1] + chunks)
+    if cur.rows:
+        plans.append(cur)
+    return plans
+
+
+def table(plan: LaunchPlan) -> build.PackTable:
+    """``plan`` as the kernel's by-value parameter."""
+    t = build.PackTable()
+    n = len(plan.rows)
+    t.src[:n] = [r[0] for r in plan.rows]
+    t.dst[:n] = [r[1] for r in plan.rows]
+    t.nbytes[:n] = [r[2] for r in plan.rows]
+    t.first[:n + 1] = plan.first
+    t.n = n
+    return t
+
+
+def launch(t: build.PackTable, out):
+    """One kernel launch of a prepared table into ``out`` on the card."""
+    code = build.load().repro_bucket_pack(t, out.data_ptr(),
+                                          build.stream_ptr(out.device))
+    build.check(code, "bucket_pack")
+    launches.add()
 
 
 def pack(leaves, offsets, out):
@@ -36,21 +99,6 @@ def pack(leaves, offsets, out):
         return bucket_pack_ref(leaves, offsets, out)
     if out.device.type != "cuda":
         raise ValueError(f"bucket_pack: unsupported device {out.device}")
-    item = out.element_size()
-    rows = [(leaf.data_ptr(), off * item, leaf.numel() * item)
-            for leaf, off in zip(leaves, offsets) if leaf.numel()]
-    if not rows:
-        return out
-    # pinned, so the copy is asynchronous; PyTorch's pinned-memory cache
-    # keeps the host block until the copy has run
-    table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
-        out.device, non_blocking=True)
-    lib = build.load()
-    code = lib.repro_bucket_pack(table.data_ptr(), len(rows), out.data_ptr(),
-                                 max(r[2] for r in rows),
-                                 build.stream_ptr(out.device))
-    build.check(code, "bucket_pack")
-    # ``table`` was allocated on this stream, so the caching allocator
-    # reuses its memory only after the launch has read it
-    launches.add()
+    for plan in launch_plan(leaves, offsets, out.element_size()):
+        launch(table(plan), out)
     return out

@@ -28,6 +28,7 @@ COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 SOURCES = {
     "fused_adamw.cu": ["-fmad=false"],
     "flash_attention.cu": [],
+    "flash_attention_wgmma.cu": [],
     "bucket_pack.cu": [],
 }
 
@@ -36,12 +37,27 @@ _F = ctypes.c_float
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _ADAMW_ARGS = [_P, _P, _P, _P, _LL] + [_F] * 10 + [_P]
+MAX_PACK_LEAVES = 128
+
+
+class PackTable(ctypes.Structure):
+    """One bucket-pack launch's leaves, passed by value (``PackTable`` in
+    ``csrc/bucket_pack.cu``): source address, destination byte offset and
+    byte count per leaf, and ``first``, the 16-byte chunk prefix sums."""
+    _fields_ = [("src", ctypes.c_uint64 * MAX_PACK_LEAVES),
+                ("dst", ctypes.c_uint64 * MAX_PACK_LEAVES),
+                ("nbytes", ctypes.c_uint64 * MAX_PACK_LEAVES),
+                ("first", ctypes.c_uint32 * (MAX_PACK_LEAVES + 1)),
+                ("n", ctypes.c_int)]
+
 SIGNATURES = {
     "repro_adamw_f32": _ADAMW_ARGS,
     "repro_adamw_bf16": _ADAMW_ARGS,
     "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _F, _P],
-    "repro_bucket_pack": [_P, _I, _P, _LL, _P],
+    "repro_flash_fwd_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _F, _P],
+    "repro_bucket_pack": [PackTable, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,76 +1,102 @@
 // Bucket pack: gather a bucket's gradient leaves into its one contiguous
-// flat buffer, each leaf at its LeafSlot offset, in one launch per bucket.
+// flat buffer, each leaf at its LeafSlot offset, in one launch per bucket
+// (per 128 leaves).
 //
 // Replaces: src/repro/kernels/bucket_pack.py::_copy_kernel, launched by
 // packed_copy (pl.pallas_call at bucket_pack.py:34), together with the
 // concatenate and zero-pad of pack_leaves that feed it.
 //
 // Bound on an H100 SXM: bytes. Each element is read once and written once
-// (8 B per f32 gradient). Design: the launch takes a device table of
-// (source pointer, destination byte offset, byte count) rows, one per leaf;
-// blockIdx.y picks the leaf and the x blocks stride over its bytes. A leaf
-// whose source and destination are both 16-byte aligned is copied in
-// 16-byte words, else in 4-byte or single-byte words, so the copy is exact
-// for every dtype (f32, bf16, int32) with no concatenate temporary.
+// (8 B per f32 gradient). Design:
+// * The leaf table travels by value in the kernel's parameter block (a
+//   __grid_constant__ struct of up to 128 rows of source address,
+//   destination byte offset and byte count), so a launch needs no
+//   allocation and no host-to-device copy before it.
+// * The grid is 1-D over the bucket's 16-byte chunks, kChunksPerBlock to a
+//   block, so every block has the same number of bytes to move whatever
+//   the leaf sizes, and none is idle. A block finds the leaf of its first
+//   chunk by binary search over the table's chunk prefix sums and walks on
+//   through the leaves its range covers.
+// * A leaf whose source and destination are both 16-byte aligned is copied
+//   in 16-byte words, else in 4-byte or single-byte words, so the copy is
+//   exact for every dtype (f32, bf16, int32) with no concatenate
+//   temporary. On the card, 8 KiB blocks of 512 threads with one chunk a
+//   thread beat larger blocks and more loads in flight a thread.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kMaxLeaves = 128;
+constexpr int kThreads = 512;
+constexpr unsigned kChunksPerBlock = kThreads;   // 8 KiB, a chunk a thread
+
+}  // namespace
+
+// One launch's leaves; first[i] is the number of 16-byte chunks (the last
+// one of a leaf may be partial) in leaves 0..i-1. Matches
+// repro_torch.kernels.build.PackTable.
+struct PackTable {
+  unsigned long long src[kMaxLeaves];      // source address
+  unsigned long long dst[kMaxLeaves];      // byte offset into the bucket
+  unsigned long long nbytes[kMaxLeaves];
+  unsigned int first[kMaxLeaves + 1];
+  int n;
+};
+
+namespace {
+
+// Chunks [a, e) of one leaf, in words of type W.
 template <typename W>
-__device__ __forceinline__ void copy_words(const unsigned char* src,
-                                           unsigned char* dst, int64_t nbytes,
-                                           int64_t tid, int64_t stride) {
-  const int64_t nw = nbytes / (int64_t)sizeof(W);
-  const W* s = reinterpret_cast<const W*>(src);
-  W* d = reinterpret_cast<W*>(dst);
-  // four independent loads in flight per thread before their stores
-  int64_t i = tid;
-  for (; i + 3 * stride < nw; i += 4 * stride) {
-    const W a = s[i], b = s[i + stride], c = s[i + 2 * stride],
-            e = s[i + 3 * stride];
-    d[i] = a;
-    d[i + stride] = b;
-    d[i + 2 * stride] = c;
-    d[i + 3 * stride] = e;
-  }
-  for (; i < nw; i += stride) d[i] = s[i];
-  for (int64_t j = nw * (int64_t)sizeof(W) + tid; j < nbytes; j += stride)
-    dst[j] = src[j];
+__device__ __forceinline__ void copy_chunks(const unsigned char* src,
+                                            unsigned char* dst,
+                                            unsigned long long nbytes,
+                                            unsigned a, unsigned e) {
+  struct Chunk { W w[16 / sizeof(W)]; };
+  const Chunk* s = reinterpret_cast<const Chunk*>(src);
+  Chunk* d = reinterpret_cast<Chunk*>(dst);
+  const unsigned long long full = nbytes / 16;        // whole chunks
+  const unsigned ef = (unsigned)min((unsigned long long)e, full);
+  for (unsigned c = a + threadIdx.x; c < ef; c += kThreads) d[c] = s[c];
+  if (threadIdx.x == 0 && a <= full && full < e)      // the partial last chunk
+    for (unsigned long long i = full * 16; i < nbytes; ++i) dst[i] = src[i];
 }
 
-__global__ void pack_kernel(const long long* __restrict__ table,
-                            unsigned char* __restrict__ out) {
-  const int leaf = blockIdx.y;
-  const unsigned char* src =
-      reinterpret_cast<const unsigned char*>(table[3 * leaf]);
-  unsigned char* dst = out + table[3 * leaf + 1];
-  const int64_t nbytes = table[3 * leaf + 2];
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const uintptr_t align = (uintptr_t)src | (uintptr_t)dst;
-  if (align % 16 == 0)
-    copy_words<uint4>(src, dst, nbytes, tid, stride);
-  else if (align % 4 == 0)
-    copy_words<uint32_t>(src, dst, nbytes, tid, stride);
-  else
-    copy_words<unsigned char>(src, dst, nbytes, tid, stride);
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const __grid_constant__ PackTable t, unsigned char* out) {
+  const unsigned c_begin = blockIdx.x * kChunksPerBlock;
+  const unsigned c_end = min(c_begin + kChunksPerBlock, t.first[t.n]);
+  int lo = 0, hi = t.n - 1;             // the last leaf with first <= c_begin
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (t.first[mid] <= c_begin) lo = mid;
+    else hi = mid - 1;
+  }
+  for (int leaf = lo; leaf < t.n && t.first[leaf] < c_end; ++leaf) {
+    const unsigned f = t.first[leaf];
+    const unsigned a = max(c_begin, f) - f;
+    const unsigned e = min(c_end, t.first[leaf + 1]) - f;
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(t.src[leaf]);
+    unsigned char* dst = out + t.dst[leaf];
+    const uintptr_t align = (uintptr_t)src | (uintptr_t)dst;
+    if (align % 16 == 0)
+      copy_chunks<uint4>(src, dst, t.nbytes[leaf], a, e);
+    else if (align % 4 == 0)
+      copy_chunks<uint32_t>(src, dst, t.nbytes[leaf], a, e);
+    else
+      copy_chunks<unsigned char>(src, dst, t.nbytes[leaf], a, e);
+  }
 }
 
 }  // namespace
 
-// table: device array of n_leaves rows (src_ptr, dst_byte_offset, nbytes).
-extern "C" int repro_bucket_pack(const long long* table, int n_leaves,
-                                 void* out, long long max_nbytes,
-                                 void* stream) {
-  if (n_leaves <= 0 || max_nbytes <= 0) return (int)cudaSuccess;
-  if (n_leaves > 65535) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  long long blocks = (max_nbytes / 64 + threads - 1) / threads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  const dim3 grid((unsigned)blocks, (unsigned)n_leaves);
-  pack_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+extern "C" int repro_bucket_pack(PackTable table, void* out, void* stream) {
+  if (table.n <= 0) return (int)cudaSuccess;
+  if (table.n > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  const unsigned chunks = table.first[table.n];
+  const unsigned blocks = (chunks + kChunksPerBlock - 1) / kChunksPerBlock;
+  pack_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       table, reinterpret_cast<unsigned char*>(out));
   return (int)cudaGetLastError();
 }

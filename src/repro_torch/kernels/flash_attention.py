@@ -1,5 +1,10 @@
-"""Flash-attention forward wrapper: the CUDA kernel for tensors on the card,
+"""Flash-attention forward wrapper: a CUDA kernel for tensors on the card,
 the plain version (`ref.flash_attention_ref`) for tensors on the CPU.
+
+Two kernels, chosen by :func:`route`: the tensor-core kernel
+(``csrc/flash_attention_wgmma.cu``) for bf16 with head_dim 64 or 128, and the
+SIMT kernel (``csrc/flash_attention.cu``) for f32 and for bf16 with a
+narrower head. Each counts its own launches.
 
 Returns ``(o, lse)``: the recompute backward of the model's attention
 (`repro_torch.models.layers.FlashAttention`) needs the row log-sum-exp.
@@ -13,8 +18,22 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
-launches = build.LaunchCounter()
-HEAD_DIMS = (8, 16, 32, 64)
+launches_wgmma = build.LaunchCounter()
+launches_simt = build.LaunchCounter()
+WGMMA_HEAD_DIMS = (64, 128)
+SIMT_HEAD_DIMS = (8, 16, 32, 64)
+
+
+def route(dtype, d: int) -> str:
+    """The kernel that takes (dtype, head_dim) on the card: "wgmma" for bf16
+    at d 64 or 128, "simt" for f32 and for the other bf16 head dims."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if dtype in (torch.float32, torch.bfloat16) and d in SIMT_HEAD_DIMS:
+        return "simt"
+    raise ValueError(f"flash_attention: no kernel for {dtype} at head_dim {d}"
+                     f" (bf16: {sorted(set(SIMT_HEAD_DIMS + WGMMA_HEAD_DIMS))}"
+                     f", f32: {list(SIMT_HEAD_DIMS)})")
 
 
 def _check(q, k, v):
@@ -45,19 +64,28 @@ def flash_attention(q, k, v, causal: bool = True):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
+    kernel = route(q.dtype, d)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = build.load()
-    code = lib.repro_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, sq, skv, h, hkv, d, int(causal),
-        int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d),
-        build.stream_ptr(q.device))
-    build.check(code, "flash_attention")
-    launches.add()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, sq, skv, h, hkv, d, int(causal))
+    stream = build.stream_ptr(q.device)
+    if kernel == "wgmma":
+        # the TMA unit reads q, k and v from 16-byte aligned addresses
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} is not 16-byte "
+                                 f"aligned")
+        code = lib.repro_flash_fwd_wgmma(*args, 1.0 / math.sqrt(d), stream)
+        build.check(code, "flash_attention (wgmma)")
+        launches_wgmma.add()
+    else:
+        code = lib.repro_flash_fwd(*args, int(q.dtype == torch.bfloat16),
+                                   1.0 / math.sqrt(d), stream)
+        build.check(code, "flash_attention (simt)")
+        launches_simt.add()
     return o, lse

@@ -16,7 +16,8 @@ flash_attention = _fa.flash_attention
 pack_bucket = _bp.pack
 
 COUNTERS = {"fused_adamw": _fw.launches,
-            "flash_attention": _fa.launches,
+            "flash_attention_wgmma": _fa.launches_wgmma,
+            "flash_attention_simt": _fa.launches_simt,
             "bucket_pack": _bp.launches}
 
 

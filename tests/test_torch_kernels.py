@@ -18,8 +18,10 @@ from repro.kernels.bucket_pack import pack_leaves
 from repro.models.layers import _flash_fwd_core
 
 from repro_torch.convert import to_numpy, to_tensor
+from repro_torch.kernels import bucket_pack as tbp
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.build import LaunchCounter
+from repro_torch.kernels.build import MAX_PACK_LEAVES, LaunchCounter
+from repro_torch.kernels.flash_attention import route
 
 torch.set_num_threads(2)   # leave cores to the other test workers
 
@@ -92,7 +94,8 @@ def test_adamw_scalars_are_f32_and_match_jax():
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,s,h,d", [(2, 128, 2, 16), (1, 256, 4, 32),
-                                     (2, 64, 2, 8), (1, 64, 1, 64)])
+                                     (2, 64, 2, 8), (1, 64, 1, 64),
+                                     (1, 64, 2, 128)])
 def test_flash_attention_matches_pallas(b, s, h, d, causal):
     q, k, v = (jnp.asarray(RNG.standard_normal((b, s, h, d)), jnp.float32)
                * sc for sc in (0.3, 0.3, 1.0))
@@ -226,3 +229,130 @@ def test_optimizer_functions_match_jax():
                                                                      100)
     for step in (0, 3, 10, 40, 100, 130):
         assert tlr(step) == pytest.approx(float(jlr(step)), rel=1e-6)
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_route_picks_the_kernel_by_dtype_and_head_dim(dtype, d):
+    """bf16 at head_dim 64 or 128 takes the tensor-core kernel; f32 and
+    the narrower bf16 heads the SIMT kernel; f32 at 128 has no kernel."""
+    if dtype == torch.float32 and d == 128:
+        with pytest.raises(ValueError):
+            route(dtype, d)
+        return
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    assert route(dtype, d) == want
+
+
+def test_flash_route_rejects_other_dtypes_and_head_dims():
+    for dtype, d in ((torch.float16, 64), (torch.bfloat16, 96),
+                     (torch.float32, 256)):
+        with pytest.raises(ValueError):
+            route(dtype, d)
+
+
+def test_flash_attention_bf16_d128_on_cpu_is_the_plain_version():
+    """bf16 at head_dim 128, which the card runs on the tensor-core
+    kernel, runs the plain version on the CPU and counts no launch."""
+    q, k, v = (torch.from_numpy(RNG.standard_normal((1, 48, 4, 128))
+                                .astype(np.float32)).to(torch.bfloat16) * sc
+               for sc in (0.3, 0.3, 1.0))
+    before = ops.launch_counts()
+    o, lse = ops.flash_attention(q, k[:, :, :2], v[:, :, :2], True)
+    want_o, want_lse = ref.flash_attention_ref(q, k[:, :, :2], v[:, :, :2],
+                                               True)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    assert ops.launch_counts() == before
+
+
+def _emulate_pack(plans, leaves, out_nbytes):
+    """What the pack kernel writes, block by block: each block takes its
+    range of 16-byte chunks, finds the leaf of its first chunk by the
+    kernel's binary search and walks through the leaves the range covers.
+    Returns the bytes written and how many times each byte was written."""
+    out = np.zeros(out_nbytes, np.uint8)
+    writes = np.zeros(out_nbytes, np.int64)
+    for plan in plans:
+        first, n = plan.first, len(plan.rows)
+        assert n <= MAX_PACK_LEAVES and len(first) == n + 1
+        for block in range(plan.blocks()):
+            c_begin = block * tbp.CHUNKS_PER_BLOCK
+            c_end = min(c_begin + tbp.CHUNKS_PER_BLOCK, first[n])
+            lo, hi = 0, n - 1
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                if first[mid] <= c_begin:
+                    lo = mid
+                else:
+                    hi = mid - 1
+            covered = 0
+            leaf = lo
+            while leaf < n and first[leaf] < c_end:
+                src, dst, nbytes = plan.rows[leaf]
+                t = leaves[plan.leaves[leaf]]
+                assert src == t.data_ptr()
+                data = t.reshape(-1).view(torch.uint8).numpy()
+                a = max(c_begin, first[leaf]) - first[leaf]
+                e = min(c_end, first[leaf + 1]) - first[leaf]
+                lo_b, hi_b = a * tbp.CHUNK, min(e * tbp.CHUNK, nbytes)
+                out[dst + lo_b:dst + hi_b] = data[lo_b:hi_b]
+                writes[dst + lo_b:dst + hi_b] += 1
+                covered += e - a
+                leaf += 1
+            assert covered == c_end - c_begin     # no block idles
+    return out, writes
+
+
+def _pack_case(n_leaves, dtype, seed):
+    rng = np.random.default_rng(seed)
+    sizes = [int(x) for x in rng.integers(1, 3000, n_leaves)]
+    sizes[0] += 4096 * 3                     # a leaf over several blocks
+    if dtype == torch.int32:
+        leaves = [torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32))
+                  for n in sizes]
+    else:
+        leaves = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+                  .to(dtype) for n in sizes]
+    gaps = rng.integers(0, 5, n_leaves)      # misaligned offsets
+    offs = (np.cumsum([0] + sizes[:-1]) + np.cumsum(gaps)).tolist()
+    return leaves, [int(o) for o in offs], int(offs[-1] + sizes[-1] + 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("n_leaves", list(range(1, 10)))
+def test_bucket_pack_launch_plan_writes_every_byte_once(n_leaves, dtype):
+    leaves, offs, total = _pack_case(n_leaves, dtype, 100 * n_leaves)
+    item = leaves[0].element_size()
+    plans = tbp.launch_plan(leaves, offs, item)
+    assert len(plans) == 1
+    got, writes = _emulate_pack(plans, leaves, total * item)
+    want = ref.bucket_pack_ref(leaves, offs,
+                               torch.zeros(total, dtype=dtype))
+    want_bytes = want.view(torch.uint8).numpy()
+    inside = np.zeros(total * item, bool)
+    for t, off in zip(leaves, offs):
+        inside[off * item:(off + t.numel()) * item] = True
+    assert np.all(writes[inside] == 1) and np.all(writes[~inside] == 0)
+    np.testing.assert_array_equal(got, want_bytes)
+
+
+def test_bucket_pack_launch_plan_splits_at_128_leaves():
+    leaves = [torch.arange(i % 7 + 1, dtype=torch.float32) for i in range(200)]
+    offs = np.cumsum([0] + [t.numel() for t in leaves[:-1]]).tolist()
+    total = sum(t.numel() for t in leaves)
+    plans = tbp.launch_plan(leaves, offs, 4)
+    assert [len(p.rows) for p in plans] == [128, 72]
+    assert [i for p in plans for i in p.leaves] == list(range(200))
+    got, writes = _emulate_pack(plans, leaves, total * 4)
+    assert np.all(writes == 1)
+    np.testing.assert_array_equal(
+        got.view(np.float32), torch.cat(leaves).numpy())
+
+
+def test_bucket_pack_launch_plan_drops_empty_leaves():
+    leaves = [torch.zeros(0), torch.ones(5), torch.zeros(0)]
+    plans = tbp.launch_plan(leaves, [0, 0, 5], 4)
+    assert len(plans) == 1 and plans[0].leaves == [1]
+    assert plans[0].first == [0, 2] and plans[0].rows[0][1:] == (0, 20)
+    assert tbp.launch_plan([torch.zeros(0)], [0], 4) == []
