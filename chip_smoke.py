@@ -20,19 +20,39 @@ Phases, in order; any failed check raises and the script exits nonzero:
              params, mu and nu bit for bit, every kernel of the path must
              have run, the tensor-core flash kernel 2 x layers x
              microbatches times a step and the SIMT flash kernel never.
+5. checkpointers — the training CLI (``repro_torch.launch.train.run``)
+             at full width and depth, ``--freq 1``, 5 steps, once per
+             checkpointer: none; checkmate (2 async nodes, lag bound 2);
+             checkmate --compress; sync; async; torch_dcp; gemini;
+             checkfreq. Every run but none fails at step 4. Each stall
+             ledger must sum bit for bit, none must book no stall, each
+             copy-persist restore() must be its last checkpoint, bitwise
+             the trainer's final state where that is the last step (all
+             but checkfreq, whose tuned frequency skips steps 4 and 5), and
+             each uncompressed Checkmate shadow bitwise the trainer's. On
+             the card: the int8 codec equals its CPU run bitwise on a
+             main-path bucket over two steps, kill_node makes consolidation
+             name exactly the dead node's buckets, and the per-leaf shadow
+             (flat=False) equals the flat one bitwise; a one-node apply at
+             full width times what its staged receive hides.
 
 Output: a ``main_path`` JSON line, a ``flash_d128`` and a ``pack_host``
-timing line, a ``kernels`` JSON line, the card's name
-and power limit, and as the last line ``{"ok": true, "device": {...}}``.
-Without CUDA, or without the repository beside it, it exits nonzero.
+timing line, a ``kernels`` JSON line, a ``checkpointers`` JSON line, the
+card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
+beside it, it exits nonzero.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -49,6 +69,20 @@ H100_F32_FLOPS = 67e12               # f32 outside the tensor cores
 # channel into a 2-node async shadow on the card. tools/profile_port.py
 # profiles the same run.
 MAIN_RUN = dict(batch=8, seq=2048, shadow_nodes=2, shadow_async=True)
+
+# Phase 5: one CLI run per checkpointer, at MAIN_RUN's batch and seq,
+# checkpointing every step, with a failure at step CKPT_FAIL (not for none).
+CKPT_STEPS, CKPT_FAIL = 5, 4
+# spans whose per-step medians each run reports (the stall ledger keeps
+# only sums, which the first steps' pinned allocations inflate)
+MEDIAN_SPANS = ("checkpoint.on_step", "channel.quantize", "channel.send",
+                "capture.d2h", "shadow.apply")
+CKPT_RUNS = (
+    ("none", ()),
+    ("checkmate", ("--shadow-async", "--max-lag-steps", "2")),
+    ("checkmate", ("--shadow-async", "--max-lag-steps", "2", "--compress")),
+    ("sync", ()), ("async", ()), ("torch_dcp", ()), ("gemini", ()),
+    ("checkfreq", ()))
 
 
 def fail(msg: str):
@@ -536,6 +570,354 @@ def phase_main(cfg, steps: int = 6) -> tuple[dict, dict]:
     return out, launches
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+def _free():
+    """Return the card's and the pinned host cache's free blocks."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    empty_host = getattr(torch._C, "_accelerator_emptyHostCache", None) or \
+        getattr(torch._C, "_host_emptyCache", None)
+    if empty_host is not None:
+        empty_host()
+
+
+def _proc_kb(path: str, key: str):
+    """A ``key: N kB`` field of a /proc file, or None."""
+    try:
+        with open(path) as f:
+            for line in f:
+                if line.startswith(key + ":"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return None
+
+
+class RssPeak:
+    """The host's peak resident set of this process over a ``with`` block,
+    sampled every 10 ms from /proc/self/statm (``peak`` stays None where
+    that file cannot be read)."""
+
+    def __init__(self):
+        self.peak = self._read()
+        self._stop = threading.Event()
+
+    @staticmethod
+    def _read():
+        try:
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+        except (OSError, ValueError, IndexError):
+            return None
+
+    def _poll(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._read() or 0)
+
+    def __enter__(self):
+        if self.peak is not None:
+            self._t = threading.Thread(target=self._poll, daemon=True)
+            self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self.peak is not None:
+            self._stop.set()
+            self._t.join()
+            self.peak = max(self.peak, self._read() or 0)
+        return False
+
+
+def _state_equal(a: dict, state, what: str):
+    """Host checkpoint ``a`` bitwise equal to the trainer's ``state``."""
+    for tree in ("params", "mu", "nu"):
+        ours = getattr(state, tree)
+        check(set(a[tree]) == set(ours), f"{what}: {tree} leaf names differ")
+        for k, t in ours.items():
+            check(torch.equal(a[tree][k], t.to("cpu")),
+                  f"{what}: {tree}[{k}] not bitwise equal to the trainer")
+
+
+def ckpt_run(cfg, name: str, extra: tuple) -> dict:
+    """One CLI run at full width; checks it and returns its row."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.obs.stalls import KNOWN_STAGES
+    fail = name != "none"
+    argv = ["--arch", cfg.name, "--steps", str(CKPT_STEPS),
+            "--batch", str(MAIN_RUN["batch"]), "--seq", str(MAIN_RUN["seq"]),
+            "--freq", "1", "--checkpointer", name, "--device", "cuda",
+            "--shadow-nodes", str(MAIN_RUN["shadow_nodes"]), *extra]
+    if fail:
+        argv += ["--fail-at", str(CKPT_FAIL)]
+    label = " ".join([name, *extra])
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with obs.enabled_session() as ob, RssPeak() as rss:
+        r = launch.run(argv)
+        events = ob.tracer.events()
+    launches = ops.launch_counts()
+    torch.cuda.synchronize()
+    peak_dev = torch.cuda.max_memory_allocated()
+    st, ck = r.stats, r.checkpointer
+
+    check(all(math.isfinite(x) for x in st.losses),
+          f"{label}: non-finite loss {st.losses}")
+    check(st.recoveries == int(fail), f"{label}: recoveries {st.recoveries}")
+    total = 0.0
+    for sec in ck.stall_stages.values():
+        total += sec
+    check(ck.stall_total == total, f"{label}: ledger does not sum bit for "
+                                   f"bit ({ck.stall_total} != {total})")
+    check(set(ck.stall_stages) <= set(KNOWN_STAGES),
+          f"{label}: unknown stages {set(ck.stall_stages)}")
+    for k in ("fused_adamw", "flash_attention_wgmma"):
+        check(launches[k] > 0, f"{label}: {k} never launched")
+    checkmate = name == "checkmate"
+    check((launches["bucket_pack"] > 0) == checkmate,
+          f"{label}: bucket_pack launched {launches['bucket_pack']} times")
+    ck_steps = [e["args"]["step"] for e in events
+                if e["name"] == "checkpoint.on_step"]
+    if name == "none":
+        check(ck.stall_total == 0.0 and not ck.stall_stages,
+              f"none: stall booked {ck.stall_stages}")
+    elif checkmate:
+        shadow = ck.shadow
+        sst = shadow.stats()
+        if "--compress" not in extra:
+            ckpt = shadow.consolidate()
+            check(ckpt["step"] == CKPT_STEPS, f"{label}: shadow at "
+                                              f"{ckpt['step']}")
+            _state_equal(ckpt, r.state, f"{label}: shadow")
+            del ckpt
+    else:
+        latest = ck.restore()
+        check(latest["step"] == ck_steps[-1],
+              f"{label}: restore() at {latest['step']}, last checkpoint "
+              f"at {ck_steps[-1]}")
+        if latest["step"] == CKPT_STEPS:
+            _state_equal(latest, r.state, f"{label}: restore()")
+        del latest
+    restore = [e for e in events if e["name"] == "recovery.restore"]
+    resume = [e for e in events if e["name"] == "recovery.resume"]
+    iters = [(s + c + x) for s, c, x in zip(
+        st.iter_times, st.capture_times or [0.0] * st.steps,
+        st.stall_times)]
+    spans = {}                 # median span ms from step 2 on
+    for e in events:
+        if e["name"] in MEDIAN_SPANS and e.get("args", {}).get("step", 0) > 1:
+            spans.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    n_ck = max(ck.n_checkpoints, 1)
+    per_ck = {k: v / n_ck * 1e3 for k, v in ck.stall_stages.items()
+              if k != "consolidate-wait"}
+    tokens = MAIN_RUN["batch"] * MAIN_RUN["seq"]
+    iter_ms = statistics.median(iters[1:]) * 1e3
+    row = {
+        "run": label, "steps_run": st.steps, "report": r.report,
+        "step_ms": st.steady_iter * 1e3, "iter_ms": iter_ms,
+        "tokens_per_s": tokens / iter_ms * 1e3,
+        "step_ms_all": [t * 1e3 for t in st.iter_times],
+        "iter_ms_all": [t * 1e3 for t in iters],
+        "stall_ms_by_stage": {k: v * 1e3 for k, v in ck.stall_stages.items()},
+        "stall_ms_per_checkpoint": per_ck,
+        "stall_total_ms": ck.stall_total * 1e3,
+        "stall_ms_median": statistics.median(st.stall_times[1:]) * 1e3,
+        "span_ms_median": {k: statistics.median(v) for k, v in spans.items()},
+        "capture_ms": (statistics.median(st.capture_times) * 1e3
+                       if st.capture_times else None),
+        "checkpoints": ck.n_checkpoints, "checkpoint_steps": ck_steps,
+        "recovered_at": st.recovered_at,
+        "lost_steps": [CKPT_FAIL - 1 - s for s in st.recovered_at],
+        "restore_ms": [e["dur"] / 1e3 for e in restore],
+        "restore_to_resume_ms": [(b["ts"] - a["ts"]) / 1e3
+                                 for a, b in zip(restore, resume)],
+        "peak_device_gb": peak_dev / 1e9,
+        "host_peak_rss_gb": rss.peak / 1e9 if rss.peak is not None else None,
+        "launches": launches,
+    }
+    if name == "checkfreq":
+        row["tuned_freq"] = ck.tuned_freq
+    if checkmate:
+        row.update(lag_waits=sst.lag_waits, max_batch=sst.max_batch,
+                   shadow_mean_apply_ms=sst.mean_apply_s * 1e3,
+                   shadow_max_apply_ms=sst.max_apply_s * 1e3,
+                   shadow_lag=sst.lag,
+                   shadow_max_queue_depth=sst.max_queue_depth)
+    if "--compress" in extra:
+        row["compression_ratio"] = ck.channel.compressor.ratio
+    print(f"checkpointers: {label}: step {row['step_ms']:.2f} ms, iteration "
+          f"{iter_ms:.2f} ms, stall {row['stall_ms_by_stage']}, "
+          f"checkpoints {ck.n_checkpoints}, recovered at {st.recovered_at}, "
+          f"peak {row['peak_device_gb']:.2f} GB, host RSS "
+          f"{row['host_peak_rss_gb']} GB", flush=True)
+    del r, st, ck, events
+    return row
+
+
+def check_codec_on_card(dev, cfg) -> dict:
+    """The int8 codec on the card equals its CPU run bitwise, over two
+    steps, on one main-path bucket (the first with more than one leaf)."""
+    from repro_torch.core.buckets import BucketLayout, layout_for_tree
+    from repro_torch.dist.compression import Compressor
+    from repro_torch.models import registry
+    specs = registry.param_specs(cfg)
+    layout = layout_for_tree({k: torch.empty(sp.shape, device="meta")
+                              for k, sp in sorted(specs.items())})
+    b = next(b for b in layout.buckets if len(b.slots) > 1)
+    one = BucketLayout((b,))
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    card, cpu = Compressor(), Compressor()
+    for step in range(2):
+        g = torch.randn(b.size, generator=gen) * 1e-3
+        g[::97] = 0.0
+        g[1::101] = 1e-40                    # subnormal: flushed by both
+        got = card.compress_flats(one, {b.bucket_id: g.to(dev)})
+        want = cpu.compress_flats(one, {b.bucket_id: g})
+        torch.cuda.synchronize()
+        check(torch.equal(got[b.bucket_id].cpu(), want[b.bucket_id]),
+              f"codec: card and CPU dequantized values differ at step {step}")
+        check(torch.equal(card._ef_flat[b.bucket_id].cpu(),
+                          cpu._ef_flat[b.bucket_id]),
+              f"codec: card and CPU residuals differ at step {step}")
+    print(f"checkpointers: int8 codec bitwise equal on the card and the CPU "
+          f"over 2 steps on bucket {b.bucket_id} ({len(b.slots)} leaves, "
+          f"{b.size} elements)", flush=True)
+    return {"bucket": b.bucket_id, "leaves": len(b.slots), "size": b.size,
+            "steps": 2, "bitwise_equal": True}
+
+
+def check_shadow_on_card(dev, cfg) -> dict:
+    """At full width and reduced depth: a killed node makes consolidation
+    name exactly its buckets, and the per-leaf shadow (flat=False) equals
+    the flat one (async, lag bound 2) bitwise after three deliveries."""
+    from repro_torch.core.buckets import layout_for_tree
+    from repro_torch.core.channel import InProcessChannel, StepEvent
+    from repro_torch.core.shadow import ShadowCluster, ShadowNodeLoss
+    from repro_torch.optim.functional import OptimizerConfig
+    from repro_torch.train.step import make_train_state
+    state = make_train_state(cfg, seed=7, device=dev)
+    layout = layout_for_tree(state.params)
+    opt = OptimizerConfig()
+    flat = ShadowCluster(layout, opt, n_nodes=2, async_mode=True,
+                         max_lag_steps=2, device=dev)
+    leaf = ShadowCluster(layout, opt, n_nodes=2, device=dev, flat=False)
+    chan = InProcessChannel()
+    chan.open(layout)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for cl in (flat, leaf):
+        cl.bootstrap(state.params, state.mu, state.nu, 0)
+    for step in range(1, 4):
+        grads = {k: torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+                 for k, p in state.params.items()}
+        chan.send(StepEvent(step=step, grads=grads, lr=1e-3,
+                            grad_scale=0.9))
+        (d,) = chan.poll()
+        flat.on_delivery(d)
+        leaf.on_delivery(d)
+    a, b = flat.consolidate(), leaf.consolidate()
+    check(a["step"] == b["step"] == 3, f"shadow: steps {a['step']}, "
+                                       f"{b['step']}")
+    for tree in ("params", "mu", "nu"):
+        for k in a[tree]:
+            check(torch.equal(a[tree][k], b[tree][k]),
+                  f"shadow: flat=False {tree}[{k}] differs from flat=True")
+    st = flat.stats()
+    check(flat.nodes[1].bucket_ids, "shadow: node 1 owns no bucket")
+    flat.kill_node(1)
+    try:
+        flat.consolidate()
+        fail("shadow: consolidation after kill_node did not raise")
+    except ShadowNodeLoss as e:
+        check(e.dead_nodes == [1] and e.missing_buckets ==
+              {1: tuple(flat.nodes[1].bucket_ids)},
+              f"shadow: ShadowNodeLoss named {e.missing_buckets}")
+        survivors = {s.name for bid in flat.nodes[0].bucket_ids
+                     for s in layout.buckets[bid].slots}
+        check(set(e.partial["params"]) == survivors,
+              "shadow: the partial checkpoint is not node 0's leaves")
+    flat.shutdown()
+    leaf.shutdown()
+    out = {"layers": cfg.num_layers, "buckets": len(layout.buckets),
+           "flat_false_bitwise_equal": True, "max_batch": st.max_batch,
+           "killed_node": 1,
+           "missing_buckets": list(flat.nodes[1].bucket_ids)}
+    print(f"checkpointers: at {cfg.num_layers} layers, flat=False equals "
+          f"flat=True bitwise; kill_node(1) -> ShadowNodeLoss naming buckets "
+          f"{out['missing_buckets']}", flush=True)
+    return out
+
+
+def time_staged_receive(cfg, reps: int = 3) -> dict:
+    """How much of a shadow apply the staged receive hides, at full width
+    on one node: the apply from pinned host flats (staged), against its
+    parts run alone (the host-to-device copies; the AdamW launches on
+    device-resident flats). Wall ms per apply, means over ``reps``."""
+    from repro_torch.core.buckets import alloc_flat, layout_for_tree
+    from repro_torch.core.shadow import ShadowCluster
+    from repro_torch.models import registry
+    from repro_torch.optim.functional import OptimizerConfig
+    specs = registry.param_specs(cfg)
+    zeros = {k: torch.zeros(sp.shape, device="cuda")
+             for k, sp in sorted(specs.items())}
+    layout = layout_for_tree(zeros)
+    cl = ShadowCluster(layout, OptimizerConfig(), n_nodes=1, device="cuda")
+    cl.bootstrap(zeros, zeros, zeros, 0)
+    del zeros
+    node = cl.nodes[0]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    dev_flats = {b.bucket_id: torch.randn(b.size, generator=gen,
+                                          device="cuda") * 1e-3
+                 for b in layout.buckets}
+    host = {bid: alloc_flat(t.numel(), t.dtype, "cpu", pin=True).copy_(t)
+            for bid, t in dev_flats.items()}
+    scratch = {bid: torch.empty_like(t) for bid, t in dev_flats.items()}
+
+    def wall(fn) -> float:
+        fn()                                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def copies():
+        for bid, t in host.items():
+            scratch[bid].copy_(t, non_blocking=True)
+    out = {"buckets": len(layout.buckets),
+           "bytes": sum(t.numel() * 4 for t in host.values()),
+           "staged_ms": wall(lambda: node.apply(1, 1e-3, host)),
+           "copies_ms": wall(copies),
+           "adamw_ms": wall(lambda: node.apply(1, 1e-3, dev_flats))}
+    out["hidden_ms"] = out["copies_ms"] + out["adamw_ms"] - out["staged_ms"]
+    print(f"checkpointers: staged receive, one node at full width: apply "
+          f"{out['staged_ms']:.2f} ms against copies {out['copies_ms']:.2f} "
+          f"+ AdamW {out['adamw_ms']:.2f} ms alone ({out['hidden_ms']:.2f} "
+          f"ms hidden)", flush=True)
+    del cl, node, dev_flats, host, scratch
+    return out
+
+
+def phase_checkpointers(cfg, dev) -> dict:
+    rows = [ckpt_run(cfg, name, extra) for name, extra in CKPT_RUNS]
+    _free()
+    codec = check_codec_on_card(dev, cfg)
+    small = check_shadow_on_card(dev, dataclasses.replace(cfg, num_layers=2))
+    _free()
+    small["staged_receive"] = time_staged_receive(cfg)
+    _free()
+    return {"model": cfg.name, "layers": cfg.num_layers,
+            "batch": MAIN_RUN["batch"], "seq": MAIN_RUN["seq"],
+            "steps": CKPT_STEPS, "fail_at": CKPT_FAIL,
+            "host_mem_total_gb": (_proc_kb("/proc/meminfo", "MemTotal")
+                                  or 0) * 1024 / 1e9,
+            "runs": rows, "codec": codec, "shadow": small}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -553,6 +935,7 @@ def main():
     main_out, launches = phase_main(cfg)
     for r in rows:
         r["launches"] = launches[r["name"]]
+    ckpts = phase_checkpointers(cfg, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"main_path": main_out}))
@@ -560,6 +943,7 @@ def main():
                                      + ("shape",)}}))
     print(json.dumps({"pack_host": pack_host}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"checkpointers": ckpts}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -1,19 +1,31 @@
 """Shadow cluster (paper §4.2): replicas that turn captured gradients into
-per-iteration checkpoints — the port of ``repro.core.shadow``, flat path.
+per-iteration checkpoints — the port of ``repro.core.shadow``.
 
 Each node owns a byte-balanced set of gradient buckets (§4.2.4) and keeps
-params, mu and nu for exactly those buckets as per-bucket flat buffers on
-its ``device``, in the layout deliveries arrive in. An apply is one fused
-AdamW launch per bucket, updating the node's buffers in place under
-``state_lock`` (the JAX package donates them to a jit instead), with the
-same host-computed f32 scalars as the trainer, so the two states are
-bit-identical.
+params, mu and nu for exactly those buckets on its ``device``. With
+``flat=True`` (default) they are per-bucket flat buffers in the layout
+deliveries arrive in, and an apply is one fused AdamW launch per bucket;
+``flat=False`` keeps per-leaf tensors and launches AdamW once per leaf
+after unpacking the bucket (the regression oracle). Either way the update
+is in place under ``state_lock`` (the JAX package donates the buffers to a
+jit instead), with the same host-computed f32 scalars as the trainer, so
+the two states are bit-identical.
 
-On the card every node runs on a CUDA stream of its own, so its applies
-overlap the trainer's kernels; a delivery's host flats are copied in with
-``non_blocking=True`` from pinned memory. Async mode runs one worker
-thread per node. A worker whose apply raises loses its node: consolidation
-then raises `ShadowNodeLoss` naming exactly that node's buckets.
+On the card every node runs its applies on a CUDA stream of its own, so
+they overlap the trainer's kernels, and receives host buckets through a
+copy stream and two device staging buffers sized by its largest bucket:
+bucket i+1's host-to-device copy is queued before bucket i's update, each
+update waits on its own copy's event, and a staging buffer is refilled
+only after the update that read it has finished.
+
+Async mode runs one worker thread per node. A worker whose apply raises
+loses its node, as does `ShadowCluster.kill_node`: consolidation then
+raises `ShadowNodeLoss` naming exactly that node's buckets. With
+``max_lag_steps=K`` a worker drains up to K pending deliveries per wakeup
+and replays them as K sequential updates (`ShadowNode.apply_batch`,
+bit-identical to K separate applies), and the trainer blocks in
+``_lag_gate`` while a node's backlog is at the bound; the checkpointer
+books that wait as the ``apply-lag`` stall stage.
 """
 from __future__ import annotations
 
@@ -26,8 +38,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.buckets import (BucketLayout, alloc_flat, bucket_dtype,
-                                      pack_bucket_into, unpack_bucket)
+from repro_torch import obs as _obs
+from repro_torch.core.buckets import (ITEMSIZE, BucketLayout, alloc_flat,
+                                      bucket_dtype, pack_bucket_into,
+                                      unpack_bucket)
 from repro_torch.core.channel import Delivery
 from repro_torch.core.multicast import assign_buckets
 from repro_torch.device import resolve
@@ -61,28 +75,48 @@ class ShadowNodeLoss(RuntimeError):
         self.partial = partial
 
 
-def _as_tensor(x, device) -> torch.Tensor:
+def _as_tensor(x, device, copy: bool = False) -> torch.Tensor:
+    """``x`` (tensor or array) as a contiguous tensor on ``device``; a copy
+    when ``copy`` (it may otherwise alias ``x``)."""
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
-    return t.to(device).contiguous()
+    return t.to(device, copy=copy).contiguous()
 
 
 class ShadowNode:
-    """One shadow node: its buckets' state as flat buffers + fused AdamW."""
+    """One shadow node: its buckets' state + fused AdamW, per bucket
+    (``flat=True``) or per leaf (``flat=False``)."""
 
     def __init__(self, node_id: int, opt: OptimizerConfig,
                  layout: BucketLayout, bucket_ids: list[int],
-                 device: torch.device):
+                 device: torch.device, flat: bool = True):
         self.node_id = node_id
         self.opt = opt
         self.layout = layout
         self.device = device
+        self.flat = flat
         self.bucket_ids = sorted(bucket_ids)
         self._by_id = {b.bucket_id: b for b in layout.buckets}
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
+        cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if cuda else None
+        self.copy_stream = torch.cuda.Stream(device) if cuda else None
+        # two staging buffers (raw bytes, allocated at the first staged
+        # receive) and the events that order their copies and updates
+        self._stage_bytes = max(
+            (self._by_id[b].size * ITEMSIZE[bucket_dtype(self._by_id[b])]
+             for b in self.bucket_ids), default=0)
+        self._stage: list[torch.Tensor] = []
+        self._copied = [torch.cuda.Event(), torch.cuda.Event()] if cuda \
+            else []
+        self._applied = [torch.cuda.Event(), torch.cuda.Event()] if cuda \
+            else []
+        # flat state: bucket_id -> flat buffer
         self._pf: dict[int, torch.Tensor] = {}
         self._mf: dict[int, torch.Tensor] = {}
         self._vf: dict[int, torch.Tensor] = {}
+        # per-leaf state (flat=False): leaf name -> tensor
+        self.params: dict[str, torch.Tensor] = {}
+        self.mu: dict[str, torch.Tensor] = {}
+        self.nu: dict[str, torch.Tensor] = {}
         self.step = 0
         self.apply_count = 0
         self.apply_total_s = 0.0
@@ -105,32 +139,49 @@ class ShadowNode:
         if self.stream is not None:
             self.stream.synchronize()
 
+    def _names(self, bid: int) -> list[str]:
+        return [s.name for s in self._by_id[bid].slots]
+
     def bootstrap(self, params, mu, nu, step: int):
-        """Install the replica: leaf trees -> this node's flat buffers."""
+        """Install the replica from leaf trees (copies, never aliases)."""
         self._after_caller()
-        pf, mf, vf = {}, {}, {}
         with self._on_stream():
-            for bid in self.bucket_ids:
-                b = self._by_id[bid]
-                names = [s.name for s in b.slots]
-                for src, dst, dt in ((params, pf, bucket_dtype(b)),
-                                     (mu, mf, "float32"), (nu, vf, "float32")):
-                    leaves = {n: _as_tensor(src[n], self.device)
-                              for n in names}
-                    dst[bid] = pack_bucket_into(
-                        b, leaves, alloc_flat(b.size, dt, self.device))
+            if self.flat:
+                pf, mf, vf = {}, {}, {}
+                for bid in self.bucket_ids:
+                    b = self._by_id[bid]
+                    for src, dst, dt in ((params, pf, bucket_dtype(b)),
+                                         (mu, mf, "float32"),
+                                         (nu, vf, "float32")):
+                        leaves = {n: _as_tensor(src[n], self.device)
+                                  for n in self._names(bid)}
+                        dst[bid] = pack_bucket_into(
+                            b, leaves, alloc_flat(b.size, dt, self.device))
+                state = (pf, mf, vf, {}, {}, {})
+            else:
+                names = [n for bid in self.bucket_ids
+                         for n in self._names(bid)]
+                state = ({}, {}, {},
+                         *({n: _as_tensor(tree[n], self.device, copy=True)
+                            for n in names} for tree in (params, mu, nu)))
             self._sync()
         with self.state_lock:
-            self._pf, self._mf, self._vf = pf, mf, vf
+            (self._pf, self._mf, self._vf,
+             self.params, self.mu, self.nu) = state
             self.step = int(step)
 
     def snapshot(self) -> tuple[dict, dict, dict, int]:
-        """Apply-atomic (params, mu, nu, step) host leaf trees."""
+        """Apply-atomic (params, mu, nu, step) host leaf trees (copies)."""
         with self.state_lock, self._on_stream():
-            pf = {bid: t.to("cpu") for bid, t in self._pf.items()}
-            mf = {bid: t.to("cpu") for bid, t in self._mf.items()}
-            vf = {bid: t.to("cpu") for bid, t in self._vf.items()}
             step = self.step
+            if not self.flat:
+                return tuple({k: t.to("cpu", copy=True)
+                              for k, t in tree.items()}
+                             for tree in (self.params, self.mu,
+                                          self.nu)) + (step,)
+            pf = {bid: t.to("cpu", copy=True) for bid, t in self._pf.items()}
+            mf = {bid: t.to("cpu", copy=True) for bid, t in self._mf.items()}
+            vf = {bid: t.to("cpu", copy=True) for bid, t in self._vf.items()}
         params, mu, nu = {}, {}, {}
         for bid in self.bucket_ids:
             b = self._by_id[bid]
@@ -139,26 +190,96 @@ class ShadowNode:
             nu.update(unpack_bucket(b, vf[bid]))
         return params, mu, nu, step
 
+    def _record(self, dt: float):
+        self.apply_count += 1
+        self.apply_total_s += dt
+        self.apply_max_s = max(self.apply_max_s, dt)
+        _obs.get().metrics.histogram(
+            "shadow_apply_seconds",
+            "Per-apply wall time by shadow node").observe(
+            dt, node=self.node_id)
+
     def apply(self, step: int, lr: float, flats: dict,
               grad_scale: float = 1.0):
-        """One iteration's gradients for this node's buckets: one fused
-        AdamW launch per bucket, in place."""
+        """One iteration's gradients for this node's buckets (``flats``:
+        bucket_id -> flat buffer, on the host or the device)."""
+        with _obs.get().tracer.span("shadow.apply",
+                                    track=f"shadow{self.node_id}",
+                                    args={"step": step,
+                                          "node": self.node_id}):
+            self._apply(step, lr, flats, grad_scale)
+
+    def apply_batch(self, items: list[tuple]):
+        """Apply K pending deliveries ``[(step, lr, flats, grad_scale),
+        ...]`` as K *sequential* updates, the bounded-lag catch-up path:
+        bit-identical to K separate `apply` calls by construction."""
+        if len(items) == 1:
+            return self.apply(*items[0])
+        with _obs.get().tracer.span("shadow.apply_batch",
+                                    track=f"shadow{self.node_id}",
+                                    args={"k": len(items),
+                                          "from_step": items[0][0],
+                                          "to_step": items[-1][0],
+                                          "node": self.node_id}):
+            for item in items:
+                self._apply(*item)
+
+    def _staging(self, k: int, like: torch.Tensor) -> torch.Tensor:
+        if not self._stage:
+            self._stage = [torch.empty(self._stage_bytes, dtype=torch.uint8,
+                                       device=self.device) for _ in range(2)]
+        nbytes = like.numel() * like.element_size()
+        return self._stage[k][:nbytes].view(like.dtype)
+
+    def _received(self, flats: dict):
+        """Yield (bucket id, gradient on this node's device) in bucket
+        order, on this node's stream. Host buckets on the card are staged:
+        bucket j+1's copy is queued on the copy stream before bucket j is
+        yielded for its update."""
+        ids = self.bucket_ids
+        if self.stream is None or any(flats[b].device.type == "cuda"
+                                      for b in ids):
+            for bid in ids:
+                yield bid, flats[bid].to(self.device, non_blocking=True)
+            return
+
+        def stage(j: int) -> torch.Tensor:
+            src, k = flats[ids[j]], j % 2
+            buf = self._staging(k, src)
+            # the buffer's previous reader (bucket j-2) must be done
+            self.copy_stream.wait_event(self._applied[k])
+            with torch.cuda.stream(self.copy_stream):
+                buf.copy_(src, non_blocking=True)
+            self._copied[k].record(self.copy_stream)
+            return buf
+
+        nxt = stage(0) if ids else None
+        for j, bid in enumerate(ids):
+            g = nxt
+            if j + 1 < len(ids):
+                nxt = stage(j + 1)
+            self.stream.wait_event(self._copied[j % 2])
+            yield bid, g
+            self._applied[j % 2].record(self.stream)
+
+    def _apply(self, step, lr, flats, grad_scale):
         t0 = time.perf_counter()
         s = self.opt.scalars(step, lr)
         if any(flats[bid].device.type == "cuda" for bid in self.bucket_ids):
             self._after_caller()
         with self.state_lock, self._on_stream():
-            for bid in self.bucket_ids:
-                g = flats[bid].to(self.device, non_blocking=True)
-                ops.fused_adamw_(self._pf[bid], g, self._mf[bid],
-                                 self._vf[bid], s, grad_scale)
-            # the pinned host flats must outlive their copies: wait here
+            for bid, g in self._received(flats):
+                if self.flat:
+                    ops.fused_adamw_(self._pf[bid], g, self._mf[bid],
+                                     self._vf[bid], s, grad_scale)
+                    continue
+                for name, gl in unpack_bucket(self._by_id[bid], g).items():
+                    ops.fused_adamw_(self.params[name], gl, self.mu[name],
+                                     self.nu[name], s, grad_scale)
+            # the host flats must outlive their copies: wait here
             self._sync()
             self.step = step
-        dt = time.perf_counter() - t0
-        self.apply_count += 1
-        self.apply_total_s += dt
-        self.apply_max_s = max(self.apply_max_s, dt)
+        self._record(time.perf_counter() - t0)
 
 
 @dataclass
@@ -169,33 +290,52 @@ class ShadowStats:
     mean_apply_s: float
     max_apply_s: float
     per_node_apply_s: list[float]
+    lag_waits: int = 0             # times the trainer blocked on the bound
+    lag_wait_s: float = 0.0        # total seconds the trainer waited
+    batched_applies: int = 0       # multi-step worker drains (k >= 2)
+    max_batch: int = 1             # largest k a single drain replayed
 
 
 class ShadowCluster:
     """Checkmate's shadow plane: N nodes x partitioned fused AdamW."""
 
     def __init__(self, layout: BucketLayout, opt: OptimizerConfig,
-                 n_nodes: int = 1, async_mode: bool = False, device=None):
+                 n_nodes: int = 1, async_mode: bool = False, device=None,
+                 flat: bool = True, max_lag_steps: Optional[int] = None):
         self.device = resolve(device)
         if opt.name != "adamw":
             raise NotImplementedError(f"optimizer {opt.name!r} is not "
                                       "ported; only adamw")
+        if max_lag_steps is not None:
+            if max_lag_steps < 1:
+                raise ValueError(f"max_lag_steps must be >= 1, "
+                                 f"got {max_lag_steps}")
+            if not async_mode:
+                raise ValueError("max_lag_steps bounds the async delivery "
+                                 "queue; sync mode never lags")
         self.layout = layout
         self.opt = opt
         self.n_nodes = n_nodes
+        self.flat = flat
         self.assignment = assign_buckets(layout, n_nodes)
         self.nodes = [
             ShadowNode(i, opt, layout,
                        [b for b, n in self.assignment.items() if n == i],
-                       self.device)
+                       self.device, flat=flat)
             for i in range(n_nodes)]
         self.async_mode = async_mode
+        self.max_lag_steps = max_lag_steps
         self.train_step_seen = 0
         self.max_queue_depth = 0
+        self.lag_waits = 0
+        self.lag_wait_s_total = 0.0
+        self.batched_applies = 0
+        self.max_batch = 1
         self.dead_nodes: set[int] = set()
         self.errors: dict[int, BaseException] = {}
         self._queues: list[queue.Queue] = []
         self._drained: list[threading.Event] = []
+        self._lag_cvs: list[threading.Condition] = []
         self._workers: list[threading.Thread] = []
         if async_mode:
             for node in self.nodes:
@@ -207,33 +347,85 @@ class ShadowCluster:
                 t.start()
                 self._queues.append(q)
                 self._drained.append(ev)
+                self._lag_cvs.append(threading.Condition())
                 self._workers.append(t)
 
     # -- async plumbing --------------------------------------------------------
     def _worker(self, node: ShadowNode, q: queue.Queue,
                 drained: threading.Event):
+        # a bounded-lag shadow catches up by replaying up to K pending
+        # deliveries per wakeup; without a bound, one per wakeup
+        limit = self.max_lag_steps or 1
         while True:
             item = q.get()
-            if item is None:
-                q.task_done()
+            stop = item is None
+            batch = [] if stop else [item]
+            while not stop and len(batch) < limit:
+                try:
+                    nxt = q.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    stop = True           # shutdown sentinel: drain then exit
+                    break
+                batch.append(nxt)
+            # a node killed after these items were queued has no state left
+            if batch and node.node_id not in self.dead_nodes:
+                try:
+                    node.apply_batch(batch)
+                except Exception as e:  # the node is lost; keep draining
+                    self.errors[node.node_id] = e
+                    self.dead_nodes.add(node.node_id)
+                else:
+                    if len(batch) > 1:
+                        self.batched_applies += 1
+                        self.max_batch = max(self.max_batch, len(batch))
+            self._settle(node.node_id, q, drained,
+                         len(batch) + (1 if stop else 0))
+            if stop:
                 drained.set()
                 return
-            try:
-                if node.node_id not in self.dead_nodes:
-                    node.apply(*item)
-            except Exception as e:      # the node is lost; keep draining
-                self.errors[node.node_id] = e
-                self.dead_nodes.add(node.node_id)
-            finally:
-                q.task_done()
-                with q.mutex:
-                    if q.unfinished_tasks == 0:
-                        drained.set()
+
+    def _settle(self, node_id: int, q: queue.Queue,
+                drained: threading.Event, n: int):
+        """Mark ``n`` queue items done, refresh the drain signal, and wake a
+        trainer blocked on the lag bound."""
+        for _ in range(n):
+            q.task_done()
+        with q.mutex:
+            if q.unfinished_tasks == 0:
+                drained.set()
+        if self.max_lag_steps is not None:
+            cv = self._lag_cvs[node_id]
+            with cv:
+                cv.notify_all()
 
     @staticmethod
     def _pending(q: queue.Queue) -> int:
         with q.mutex:
             return q.unfinished_tasks
+
+    def _lag_gate(self, node_id: int, q: queue.Queue):
+        """Block the trainer's ingest while ``node_id``'s backlog is at the
+        lag bound: the shadow trails by at most ``max_lag_steps`` steps."""
+        limit = self.max_lag_steps
+        if self._pending(q) < limit or node_id in self.dead_nodes:
+            return
+        t0 = time.perf_counter()
+        cv = self._lag_cvs[node_id]
+        with cv:
+            # timed wait, so a node killed mid-wait cannot strand the
+            # trainer: the dead check runs again at each wakeup
+            while (self._pending(q) >= limit
+                   and node_id not in self.dead_nodes):
+                cv.wait(0.05)
+        dt = time.perf_counter() - t0
+        self.lag_waits += 1
+        self.lag_wait_s_total += dt
+        _obs.get().metrics.counter(
+            "shadow_lag_wait_seconds_total",
+            "Trainer wait for a backlogged shadow applier "
+            "(the apply-lag stall stage)").inc(dt, node=node_id)
 
     def _wait_drained(self, deadline: float) -> list[int]:
         """Wait for every live node's queue to drain; returns the nodes
@@ -251,14 +443,60 @@ class ShadowCluster:
     # -- API -------------------------------------------------------------------
     def bootstrap(self, params, mu, nu, step: int = 0):
         """Install the full replica (also the resync path: revives lost
-        nodes). Queued applies finish first; the install supersedes them."""
-        if self.async_mode:
-            self._wait_drained(time.monotonic() + 60.0)
+        nodes). A full-state install supersedes still-queued deliveries:
+        they are dropped, and an apply in flight finishes on the old state
+        first."""
+        for q in self._queues:
+            try:
+                while True:
+                    item = q.get_nowait()
+                    if item is None:      # never eat a shutdown sentinel
+                        q.put(None)       # (task_done below pairs our get
+                    q.task_done()         # with the re-put's increment)
+                    if item is None:
+                        break
+            except queue.Empty:
+                pass
+            while self._pending(q):
+                time.sleep(0.001)
         self.dead_nodes.clear()
         self.errors.clear()
         for node in self.nodes:
             node.bootstrap(params, mu, nu, step)
         self.train_step_seen = int(step)
+
+    def kill_node(self, node_id: int):
+        """Shadow-node death: the node's partition (params and both
+        moments) is gone, and its queued work is dropped. A later
+        `bootstrap` re-seeds a replacement."""
+        if node_id in self.dead_nodes:
+            return
+        if not 0 <= node_id < self.n_nodes:
+            raise ValueError(f"no shadow node {node_id} "
+                             f"(cluster has {self.n_nodes})")
+        self.dead_nodes.add(node_id)
+        node = self.nodes[node_id]
+        if self.async_mode:
+            q, ev = self._queues[node_id], self._drained[node_id]
+            try:
+                while True:
+                    q.get_nowait()
+                    q.task_done()
+            except queue.Empty:
+                pass
+            with q.mutex:
+                if q.unfinished_tasks == 0:
+                    ev.set()
+            if self.max_lag_steps is not None:
+                cv = self._lag_cvs[node_id]
+                with cv:          # wake a trainer blocked on the dead node
+                    cv.notify_all()
+        with node.state_lock:     # an apply in flight finishes first
+            node._pf, node._mf, node._vf = {}, {}, {}
+            node.params, node.mu, node.nu = {}, {}, {}
+        _obs.get().metrics.counter(
+            "shadow_node_deaths_total",
+            "Shadow nodes lost (partition dropped)").inc(1, node=node_id)
 
     def on_delivery(self, delivery: Delivery):
         """Consume one complete channel delivery (the only gradient
@@ -270,16 +508,24 @@ class ShadowCluster:
         self.train_step_seen = step
         live = [n for n in self.nodes if n.node_id not in self.dead_nodes]
         for node in live:
-            sub = {bid: flats[bid] for bid in node.bucket_ids}
-            item = (step, delivery.lr, sub, delivery.grad_scale)
+            item = (step, delivery.lr,
+                    {bid: flats[bid] for bid in node.bucket_ids},
+                    delivery.grad_scale)
             if not self.async_mode:
                 node.apply(*item)
                 continue
             q = self._queues[node.node_id]
+            if self.max_lag_steps is not None:
+                self._lag_gate(node.node_id, q)
             self._drained[node.node_id].clear()
             q.put(item)
-            self.max_queue_depth = max(self.max_queue_depth,
-                                       self._pending(q))
+            depth = self._pending(q)
+            self.max_queue_depth = max(self.max_queue_depth, depth)
+            if self.max_lag_steps is not None:
+                _obs.get().metrics.gauge(
+                    "shadow_lag_steps",
+                    "Shadow applier backlog at ingest (bounded by "
+                    "max_lag_steps)").set(depth, node=node.node_id)
 
     def consolidate(self, timeout: Optional[float] = None) -> dict:
         """Gather a full checkpoint from the nodes' partitions, waiting up
@@ -288,19 +534,20 @@ class ShadowCluster:
         Raises `ConsolidationTimeout` if a live node is still behind at the
         deadline and `ShadowNodeLoss` if any node was lost.
         """
-        if self.async_mode:
-            lagging = self._wait_drained(
-                time.monotonic() + (60.0 if timeout is None else timeout))
-            if lagging:
-                raise ConsolidationTimeout(lagging, self._gather())
-        if self.dead_nodes:
-            dead = sorted(self.dead_nodes)
-            err = next((self.errors[n] for n in dead if n in self.errors),
-                       None)
-            raise ShadowNodeLoss(
-                dead, {n: tuple(self.nodes[n].bucket_ids) for n in dead},
-                self._gather()) from err
-        return self._gather()
+        with _obs.get().tracer.span("shadow.consolidate", track="shadow"):
+            if self.async_mode:
+                lagging = self._wait_drained(
+                    time.monotonic() + (60.0 if timeout is None else timeout))
+                if lagging:
+                    raise ConsolidationTimeout(lagging, self._gather())
+            if self.dead_nodes:
+                dead = sorted(self.dead_nodes)
+                err = next((self.errors[n] for n in dead
+                            if n in self.errors), None)
+                raise ShadowNodeLoss(
+                    dead, {n: tuple(self.nodes[n].bucket_ids) for n in dead},
+                    self._gather()) from err
+            return self._gather()
 
     def _gather(self) -> dict:
         params: dict = {}
@@ -330,7 +577,11 @@ class ShadowCluster:
             mean_apply_s=total / count if count else 0.0,
             max_apply_s=max((n.apply_max_s for n in self.nodes), default=0.0),
             per_node_apply_s=[n.apply_total_s / n.apply_count
-                              if n.apply_count else 0.0 for n in self.nodes])
+                              if n.apply_count else 0.0 for n in self.nodes],
+            lag_waits=self.lag_waits,
+            lag_wait_s=self.lag_wait_s_total,
+            batched_applies=self.batched_applies,
+            max_batch=self.max_batch)
 
     def shutdown(self):
         if self.async_mode:
@@ -339,4 +590,5 @@ class ShadowCluster:
             for t in self._workers:
                 t.join(timeout=30)
             self._queues, self._workers, self._drained = [], [], []
+            self._lag_cvs = []
             self.async_mode = False

@@ -1,11 +1,15 @@
-"""Training loop with Checkmate, failure injection and recovery — the port
-of ``repro.train.loop.train``.
+"""Training loop with Checkmate, failure injection, recovery and straggler
+flags — the port of ``repro.train.loop.train``.
 
 The train step returns the gradients it applied; the capture packs them on
 the device into one flat buffer per bucket (the bucket-pack kernel), copies
 each bucket once into pinned host memory, and hands the host flats to the
-checkpointer as ``StepEvent.flats``. On an injected failure the loop
-restores the shadow's consolidated checkpoint and replays from its step.
+checkpointer as ``StepEvent.flats``. A channel that transforms the capture
+on the card (``device_flats``, the compressed channel) is handed the device
+buckets instead and brings its own output to the host. Copy-persist
+baselines read the state through ``StepEvent.state_fn`` instead, and the
+loop skips the capture for them. On an injected failure the loop restores
+the checkpointer's latest checkpoint and replays from its step.
 """
 from __future__ import annotations
 
@@ -16,10 +20,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.buckets import (BucketLayout, alloc_flat, bucket_dtype,
                                       layout_for_tree, pack_bucket_into)
-from repro_torch.core.channel import GradientChannel, StepEvent
+from repro_torch.core.channel import GradientChannel, StepEvent, to_host
 from repro_torch.core.checkpoint import (BaseCheckpointer,
                                          CheckmateCheckpointer,
                                          NoCheckpointer)
@@ -46,7 +51,19 @@ class LoopStats:
     failures: int = 0
     recoveries: int = 0
     recovered_at: list = field(default_factory=list)
+    straggler_flags: list = field(default_factory=list)
     checkpointer: Optional[BaseCheckpointer] = None
+
+    @property
+    def throughput(self) -> float:
+        """Steps per second of step and stall time, as in the JAX loop
+        (the capture's time is in ``capture_times``, outside both)."""
+        total = sum(self.iter_times) + sum(self.stall_times)
+        return self.steps / total if total else 0.0
+
+    @property
+    def mean_iter(self) -> float:
+        return float(np.mean(self.iter_times)) if self.iter_times else 0.0
 
     @property
     def steady_iter(self) -> float:
@@ -57,25 +74,28 @@ class LoopStats:
 
 
 class Capture:
-    """Gradient leaves -> per-bucket host flats, once per step.
+    """Gradient leaves -> per-bucket flats, once per step.
 
     On the card each bucket is packed into a device buffer reused across
-    steps, then copied into a fresh pinned host buffer (a shadow may still
-    hold the previous step's); the copies are awaited before returning.
-    On the CPU the pack writes the host buffer directly.
+    steps; with ``host`` (the default) each is then copied into fresh
+    pinned host memory (a shadow may still hold the previous step's) and
+    the copies are awaited. Without ``host`` the device buffers themselves
+    are returned, valid until the next call. On the CPU the pack writes a
+    fresh host buffer directly.
     """
 
-    def __init__(self, layout: BucketLayout, device: torch.device):
+    def __init__(self, layout: BucketLayout, device: torch.device,
+                 host: bool = True):
         self.layout = layout
         self.device = device
+        self.host = host
         self._dev: dict[int, torch.Tensor] = {}
 
     def __call__(self, grads: dict) -> dict:
         flats = {}
-        cuda = self.device.type == "cuda"
         for b in self.layout.buckets:
             dt = bucket_dtype(b)
-            if not cuda:
+            if self.device.type != "cuda":
                 flats[b.bucket_id] = pack_bucket_into(
                     b, grads, alloc_flat(b.size, dt))
                 continue
@@ -83,13 +103,8 @@ class Capture:
             if buf is None:
                 buf = self._dev[b.bucket_id] = alloc_flat(b.size, dt,
                                                           self.device)
-            pack_bucket_into(b, grads, buf)
-            host = alloc_flat(b.size, dt, "cpu", pin=True)
-            host.copy_(buf, non_blocking=True)
-            flats[b.bucket_id] = host
-        if cuda:
-            torch.cuda.current_stream(self.device).synchronize()
-        return flats
+            flats[b.bucket_id] = pack_bucket_into(b, grads, buf)
+        return to_host(flats) if self.host else flats
 
 
 def train(cfg: ModelConfig, *,
@@ -104,6 +119,8 @@ def train(cfg: ModelConfig, *,
           shadow_async: bool = False,
           failure_plan: Optional[FailurePlan] = None,
           seed: int = 0,
+          straggler_ema: float = 0.9,
+          straggler_factor: float = 2.0,
           state: Optional[TrainState] = None,
           step_hook: Optional[Callable] = None,
           device=None) -> tuple[TrainState, LoopStats]:
@@ -115,6 +132,8 @@ def train(cfg: ModelConfig, *,
     `CheckmateCheckpointer` wired through that channel, exposed as
     ``stats.checkpointer``. Mutually exclusive with ``checkpointer``.
     ``step_hook(step, state, stats)`` runs after every completed iteration.
+    An iteration slower than ``straggler_factor`` times the EMA of earlier
+    ones (weight ``straggler_ema``) is flagged in ``stats.straggler_flags``.
     """
     device = resolve(device)
     failure_plan = failure_plan or FailurePlan()
@@ -132,17 +151,23 @@ def train(cfg: ModelConfig, *,
     checkpointer = checkpointer or NoCheckpointer()
     capture = None
     if checkpointer.consumes_grads:
-        capture = Capture(checkpointer.shadow.layout, device)
+        capture = Capture(checkpointer.shadow.layout, device,
+                          host=not getattr(checkpointer.channel,
+                                           "device_flats", False))
 
     step_fn = build_train_step(cfg, opt, lr_fn)
     stats = LoopStats(checkpointer=checkpointer)
+    ema_iter = None
     step = int(state.step)
+    ob = _obs.get()
     while step < steps:
         dbatch = device_batch(stream.batch_at(step), device)
         if failure_plan.should_fail(step + 1):
             # fail mid-iteration: the device state for this step is lost
             stats.failures += 1
-            restored = checkpointer.restore()
+            with ob.tracer.span("recovery.restore", track="recovery",
+                                args={"failed_step": step + 1}):
+                restored = checkpointer.restore()
             if restored is None:
                 raise TrainingFailure(f"injected failure at step {step + 1} "
                                       f"and no checkpoint to restore")
@@ -151,20 +176,35 @@ def train(cfg: ModelConfig, *,
             step = int(restored["step"])
             stats.recoveries += 1
             stats.recovered_at.append(step)
+            ob.tracer.instant("recovery.resume", track="recovery",
+                              args={"resumed_step": step})
+            ob.metrics.counter("train_recoveries_total",
+                               "Recoveries from injected failures").inc(1)
             continue
         t0 = time.perf_counter()
-        state, metrics, grads = step_fn(state, dbatch)
-        loss = float(metrics["loss"])    # waits for the step
+        with ob.tracer.span("step.compute", args={"step": step + 1}):
+            state, metrics, grads = step_fn(state, dbatch)
+            loss = float(metrics["loss"])    # waits for the step
         iter_time = time.perf_counter() - t0
         step += 1
         stats.steps += 1
         stats.iter_times.append(iter_time)
         stats.losses.append(loss)
 
+        # straggler observability: EMA-based slow-iteration flag
+        if ema_iter is None:
+            ema_iter = iter_time
+        else:
+            if iter_time > straggler_factor * ema_iter:
+                stats.straggler_flags.append(step)
+            ema_iter = (straggler_ema * ema_iter
+                        + (1 - straggler_ema) * iter_time)
+
         flats = None
         if capture is not None:
             t1 = time.perf_counter()
-            flats = capture(grads)
+            with ob.tracer.span("capture.d2h", args={"step": step}):
+                flats = capture(grads)
             stats.capture_times.append(time.perf_counter() - t1)
         del grads
         stall = checkpointer.on_step(StepEvent(
@@ -172,6 +212,7 @@ def train(cfg: ModelConfig, *,
             grad_scale=metrics["grad_scale"], iter_time=iter_time,
             state_fn=lambda: checkpoint_from_state(state)))
         stats.stall_times.append(stall)
+        ob.metrics.counter("train_steps_total", "Completed iterations").inc(1)
         if step_hook is not None:
             step_hook(step, state, stats)
 
