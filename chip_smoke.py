@@ -23,9 +23,12 @@ Phases, in order; any failed check raises and the script exits nonzero:
 5. checkpointers — the training CLI (``repro_torch.launch.train.run``)
              at full width and depth, ``--freq 1``, 5 steps, once per
              checkpointer: none; checkmate (2 async nodes, lag bound 2);
-             checkmate --compress; sync; async; torch_dcp; gemini;
-             checkfreq. Every run but none fails at step 4. Each stall
-             ledger must sum bit for bit, none must book no stall, each
+             checkmate --compress; the same two over ``--channel
+             packetized --topology rail-optimized`` (the gradients cross
+             the simulated multicast fabric); sync; async; torch_dcp;
+             gemini; checkfreq. Every run but none fails at step 4. Each
+             stall ledger must sum bit for bit, none must book no stall,
+             each Checkmate run must lose no step at the failure, each
              copy-persist restore() must be its last checkpoint, bitwise
              the trainer's final state where that is the last step (all
              but checkfreq, whose tuned frequency skips steps 4 and 5), and
@@ -33,8 +36,12 @@ Phases, in order; any failed check raises and the script exits nonzero:
              the card: the int8 codec equals its CPU run bitwise on a
              main-path bucket over two steps, kill_node makes consolidation
              name exactly the dead node's buckets, and the per-leaf shadow
-             (flat=False) equals the flat one bitwise; a one-node apply at
-             full width times what its staged receive hides.
+             (flat=False) equals the flat one bitwise; at 2 layers the
+             fabric gates a lost capture until a resync, a sharded fabric
+             with a dead owner loses exactly its buckets while the
+             surviving shard stays bitwise the trainer's, and both fabric
+             engines give one result; a one-node apply at full width times
+             what its staged receive hides.
 
 Output: a ``main_path`` JSON line, a ``flash_d128`` and a ``pack_host``
 timing line, a ``kernels`` JSON line, a ``checkpointers`` JSON line, the
@@ -76,11 +83,15 @@ CKPT_STEPS, CKPT_FAIL = 5, 4
 # spans whose per-step medians each run reports (the stall ledger keeps
 # only sums, which the first steps' pinned allocations inflate)
 MEDIAN_SPANS = ("checkpoint.on_step", "channel.quantize", "channel.send",
-                "capture.d2h", "shadow.apply")
+                "fabric.simulate", "capture.d2h", "shadow.apply")
+PACKETIZED = ("--channel", "packetized", "--topology", "rail-optimized")
 CKPT_RUNS = (
     ("none", ()),
     ("checkmate", ("--shadow-async", "--max-lag-steps", "2")),
     ("checkmate", ("--shadow-async", "--max-lag-steps", "2", "--compress")),
+    ("checkmate", ("--shadow-async", "--max-lag-steps", "2", *PACKETIZED)),
+    ("checkmate", ("--shadow-async", "--max-lag-steps", "2", *PACKETIZED,
+                   "--compress")),
     ("sync", ()), ("async", ()), ("torch_dcp", ()), ("gemini", ()),
     ("checkfreq", ()))
 
@@ -686,6 +697,8 @@ def ckpt_run(cfg, name: str, extra: tuple) -> dict:
         check(ck.stall_total == 0.0 and not ck.stall_stages,
               f"none: stall booked {ck.stall_stages}")
     elif checkmate:
+        check(st.recovered_at == [CKPT_FAIL - 1],
+              f"{label}: recovered at {st.recovered_at}, lost steps")
         shadow = ck.shadow
         sst = shadow.stats()
         if "--compress" not in extra:
@@ -749,6 +762,8 @@ def ckpt_run(cfg, name: str, extra: tuple) -> dict:
                    shadow_max_queue_depth=sst.max_queue_depth)
     if "--compress" in extra:
         row["compression_ratio"] = ck.channel.compressor.ratio
+    if "packetized" in extra:
+        row["fabric"] = fabric_row(ck, events, label)
     print(f"checkpointers: {label}: step {row['step_ms']:.2f} ms, iteration "
           f"{iter_ms:.2f} ms, stall {row['stall_ms_by_stage']}, "
           f"checkpoints {ck.n_checkpoints}, recovered at {st.recovered_at}, "
@@ -756,6 +771,41 @@ def ckpt_run(cfg, name: str, extra: tuple) -> dict:
           f"{row['host_peak_rss_gb']} GB", flush=True)
     del r, st, ck, events
     return row
+
+
+def fabric_row(ck, events, label: str) -> dict:
+    """A packetized run's fabric account: its channel's `FabricTotals`;
+    per send the simulated AllGather time and event count (from the
+    ``allgather step<N>`` spans on the simulated-time tracks); and per send
+    the host wall ms of the send, of its copy into the wire buffer and of
+    the simulation (the first sends page-lock fresh rx buffers)."""
+    chan = ck.channel
+    while not hasattr(chan, "totals"):
+        chan = chan.inner
+    tot = chan.totals
+    sims = [e for e in events if e["pid"] == 2
+            and e["name"].startswith("allgather step")]
+    check(tot.sends == len(sims) and tot.sends > 0,
+          f"{label}: {tot.sends} sends, {len(sims)} fabric spans")
+    check(tot.gated == 0 and tot.drops == 0,
+          f"{label}: {tot.gated} gated sends, {tot.drops} drops")
+    out = {"sends": tot.sends, "gated": tot.gated,
+           "frames_tx": tot.frames_tx, "frames_rx": tot.frames_rx,
+           "frames_mirrored": tot.frames_mirrored, "drops": tot.drops,
+           "pfc_pauses": tot.pfc_pauses, "fabric_time_s": tot.fabric_time_s,
+           "wire_bytes": tot.wire_bytes,
+           "simulated_ms_per_send": [e["dur"] / 1e3 for e in sims],
+           "events_per_send": [e["args"]["events"] for e in sims],
+           "span_ms_all": {name: [e["dur"] / 1e3 for e in events
+                                  if e["name"] == name]
+                           for name in ("channel.send", "bucket.pack",
+                                        "fabric.simulate")}}
+    print(f"checkpointers: {label}: fabric {out['sends']} sends, "
+          f"{out['gated']} gated, frames tx {out['frames_tx']} rx "
+          f"{out['frames_rx']} mirrored {out['frames_mirrored']}, drops "
+          f"{out['drops']}, PFC pauses {out['pfc_pauses']}, simulated "
+          f"{out['fabric_time_s']:.6f} s", flush=True)
+    return out
 
 
 def check_codec_on_card(dev, cfg) -> dict:
@@ -851,6 +901,100 @@ def check_shadow_on_card(dev, cfg) -> dict:
     return out
 
 
+def check_fabric_on_card(dev, cfg) -> dict:
+    """At full width and reduced depth, on the card: a lost capture is
+    gated and the shadow frozen until the next step's state_fn resync; a
+    sharded fabric with owner 1 dead loses exactly its buckets while owner
+    0's shard stays bitwise the trainer's; the fast and per-frame fabric
+    engines deliver the same bytes with the same `FabricResult`."""
+    from repro_torch.core.buckets import layout_for_tree
+    from repro_torch.core.channel import PacketizedChannel, StepEvent
+    from repro_torch.core.checkpoint import CheckmateCheckpointer
+    from repro_torch.core.shadow import ShadowCluster, ShadowNodeLoss
+    from repro_torch.optim.functional import OptimizerConfig
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import make_train_state
+    run = dict(steps=4, batch=4, seq=256, device=dev, seed=3)
+
+    # a lost capture: step 2 gated, frozen at 1, resynced from step 3's state
+    applied = []
+    state, stats = train(cfg, channel=PacketizedChannel(
+        failures_at={2: "capture"}), step_hook=lambda s, st, x: applied.append(
+            x.checkpointer.shadow.stats().steps_applied), **run)
+    ck = stats.checkpointer
+    check(ck.skipped_steps == [2] and ck.resyncs == [3],
+          f"fabric: skipped {ck.skipped_steps}, resyncs {ck.resyncs}")
+    check(applied == [1, 1, 3, 4], f"fabric: shadow steps {applied}")
+    _state_equal(ck.shadow.consolidate(), state, "fabric: after the resync")
+    gated = {"skipped_steps": ck.skipped_steps, "resyncs": ck.resyncs,
+             "shadow_steps": applied}
+    del state, stats, ck
+
+    # a dead owner on a sharded fabric: the last step applies to owner 0
+    state0 = make_train_state(cfg, seed=3, device=dev)
+    layout = layout_for_tree(state0.params)
+    shadow = ShadowCluster(layout, OptimizerConfig(), n_nodes=2, device=dev)
+    shadow.bootstrap(state0.params, state0.mu, state0.nu, 0)
+    chan = PacketizedChannel(sharded=True, n_shadow_nodes=2)
+    ck = CheckmateCheckpointer(shadow, channel=chan)
+
+    def kill(step, st, x):
+        if step == run["steps"] - 1:
+            shadow.kill_node(1)
+            chan.kill_shadow_node(1)
+    state, stats = train(cfg, checkpointer=ck, state=state0, step_hook=kill,
+                         **run)
+    check(ck.partial_steps == [run["steps"]],
+          f"fabric: partial steps {ck.partial_steps}")
+    lost = tuple(shadow.nodes[1].bucket_ids)
+    try:
+        shadow.consolidate()
+        fail("fabric: consolidation with a dead owner did not raise")
+    except ShadowNodeLoss as e:
+        check(e.missing_buckets == {1: lost},
+              f"fabric: ShadowNodeLoss named {e.missing_buckets}")
+        mine = {s.name for bid in shadow.nodes[0].bucket_ids
+                for s in layout.buckets[bid].slots}
+        check(e.partial["step"] == run["steps"]
+              and set(e.partial["params"]) == mine,
+              "fabric: the partial checkpoint is not owner 0's at the end")
+        for tree in ("params", "mu", "nu"):
+            for k in mine:
+                check(torch.equal(e.partial[tree][k],
+                                  getattr(state, tree)[k].cpu()),
+                      f"fabric: surviving {tree}[{k}] not bitwise")
+    sharded = {"partial_steps": ck.partial_steps, "missing_buckets": lost}
+    del state, stats, ck, shadow, chan, state0
+
+    # both engines, fed device flats (the compressed channel's path)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    flats = {b.bucket_id: torch.randn(b.size, generator=gen, device=dev)
+             for b in layout.buckets}
+    res = []
+    for fast in (False, True):
+        chan = PacketizedChannel(fast=fast)
+        chan.open(layout)
+        chan.send(StepEvent(step=1, flats=flats, lr=1e-3))
+        (d,) = chan.poll()
+        for bid, t in flats.items():
+            check(torch.equal(d.flats[bid], t.cpu()),
+                  f"fabric: fast={fast} bucket {bid} not delivered bitwise")
+        res.append(dataclasses.asdict(d.fabric))
+        del d, chan
+    check(res[0] == res[1], "fabric: fast and per-frame engines differ")
+    out = {"layers": cfg.num_layers, "gated": gated, "sharded": sharded,
+           "engines_equal": True, "bytes": sum(t.numel() * 4
+                                               for t in flats.values()),
+           "simulated_ms": res[0]["duration_s"] * 1e3,
+           "events": res[0]["events"]}
+    print(f"checkpointers: fabric at {cfg.num_layers} layers: step 2's "
+          f"capture gated, resynced at 3; dead owner 1 lost buckets "
+          f"{list(lost)}, owner 0 bitwise; both engines equal "
+          f"({out['events']} events, {out['simulated_ms']:.3f} ms "
+          f"simulated)", flush=True)
+    return out
+
+
 def time_staged_receive(cfg, reps: int = 3) -> dict:
     """How much of a shadow apply the staged receive hides, at full width
     on one node: the apply from pinned host flats (staged), against its
@@ -907,6 +1051,9 @@ def phase_checkpointers(cfg, dev) -> dict:
     _free()
     codec = check_codec_on_card(dev, cfg)
     small = check_shadow_on_card(dev, dataclasses.replace(cfg, num_layers=2))
+    _free()
+    small["fabric"] = check_fabric_on_card(
+        dev, dataclasses.replace(cfg, num_layers=2))
     _free()
     small["staged_receive"] = time_staged_receive(cfg)
     _free()

@@ -267,11 +267,32 @@ class CheckmateCheckpointer(BaseCheckpointer):
     a sync-mode shadow applies on this thread). A resync books ``resync``
     and a recovery's consolidation ``consolidate-wait``.
 
+    The stall is the channel's sender-visible send cost, so a
+    `PacketizedChannel`'s event loop (the host simulating the network)
+    is never booked as training stall.
+
     A gated delivery is not applied and desynchronizes the stream: the
     shadow stays frozen at the last fully-captured step (``skipped_steps``
     records every refused step) until the next event that carries
     ``state_fn`` (a full-state resync) or ``restore()`` (recovery rewinds
     training to exactly the shadow's state).
+
+    A bucket-sharded transport (``PacketizedChannel(sharded=True)``) gates
+    per owner node instead, by its deliveries' ``node_complete``:
+
+    * holes confined to DEAD owners (``shadow.dead_nodes``) cost exactly
+      their shards: the surviving owners keep replaying the stream
+      (``ShadowCluster.on_delivery(d, nodes=live)``) and consolidation
+      names exactly the dead buckets (`ShadowNodeLoss`). Such a step is no
+      checkpoint: it is booked as a skipped capture with zero stall and
+      recorded in ``skipped_steps`` and ``partial_steps``.
+    * a hole on an ALIVE owner desynchronizes the whole cluster, as the
+      unsharded gate does: advancing the others would tear the
+      consolidated tree across steps.
+
+    Either way the next ``state_fn`` resync makes the cluster whole: the
+    shadow is re-bootstrapped (reviving dead owners) and the channel's
+    ``revive_all()`` re-arms the transport.
     """
     name = "checkmate"
     consumes_grads = True
@@ -284,40 +305,65 @@ class CheckmateCheckpointer(BaseCheckpointer):
                                          else InProcessChannel())
         self.channel.open(shadow.layout)
         self.skipped_steps: list[int] = []
+        self.partial_steps: list[int] = []   # sharded: survivors-only applies
         self.resyncs: list[int] = []
         self._desynced = False
+        self._dead_desynced = False      # dead shards seen: arm a resync
 
     def _apply_deliveries(self):
         for d in self.channel.poll():
-            if not d.complete:
-                self._desynced = True
+            nc = d.node_complete
+            if nc is None:               # unsharded transport: global gate
+                if not d.complete:
+                    self._desynced = True
+                    self.skipped_steps.append(d.step)
+                elif self._desynced:     # contiguity: refuse post-gap applies
+                    self.skipped_steps.append(d.step)
+                else:
+                    self.shadow.on_delivery(d)
+                continue
+            # sharded transport: per-owner verdicts (see class docstring)
+            dead = set(self.shadow.dead_nodes)
+            incomplete = {n for n, ok in nc.items() if not ok}
+            if incomplete - dead:
+                self._desynced = True    # an alive owner lost capture spans
+            elif incomplete:
+                self._dead_desynced = True
+            if self._desynced or incomplete:
                 self.skipped_steps.append(d.step)
-            elif self._desynced:         # contiguity: refuse post-gap applies
-                self.skipped_steps.append(d.step)
+                if not self._desynced:
+                    live = set(nc) - dead
+                    if live:
+                        self.shadow.on_delivery(d, nodes=live)
+                        self.partial_steps.append(d.step)
             else:
                 self.shadow.on_delivery(d)
 
     def _checkpoint(self, event: StepEvent):
         ob = _obs.get()
         t0 = time.perf_counter()
-        if self._desynced:
-            if event.state_fn is None:
+        if self._desynced or self._dead_desynced:
+            if event.state_fn is not None:
+                with ob.tracer.span("checkpoint.resync", track="checkpoint",
+                                    args={"step": event.step}):
+                    self.channel.poll()  # superseded by the full-state copy
+                    snap = event.state_fn()
+                    self.shadow.bootstrap(snap["params"], snap["mu"],
+                                          snap["nu"], int(snap["step"]))
+                revive = getattr(self.channel, "revive_all", None)
+                if revive is not None:
+                    revive()             # replacement shadow hardware racked
+                self._desynced = False
+                self._dead_desynced = False
+                self.resyncs.append(event.step)
+                dt = time.perf_counter() - t0
+                self._parts = {"resync": dt}
+                return dt
+            if self._desynced:
                 self.skipped_steps.append(event.step)
                 return False             # frozen until resync or recovery
-            with ob.tracer.span("checkpoint.resync", track="checkpoint",
-                                args={"step": event.step}):
-                self.channel.poll()      # superseded by the full-state copy
-                snap = event.state_fn()
-                self.shadow.bootstrap(snap["params"], snap["mu"],
-                                      snap["nu"], int(snap["step"]))
-            revive = getattr(self.channel, "revive_all", None)
-            if revive is not None:
-                revive()
-            self._desynced = False
-            self.resyncs.append(event.step)
-            dt = time.perf_counter() - t0
-            self._parts = {"resync": dt}
-            return dt
+            # dead owners only: their shards are lost either way — keep
+            # the survivors replaying (consolidate reports the holes)
         if event.grads is None and event.flats is None:
             raise ValueError("Checkmate consumes captured gradients")
         n_skipped = len(self.skipped_steps)
@@ -326,7 +372,7 @@ class CheckmateCheckpointer(BaseCheckpointer):
         t1 = time.perf_counter()
         self._apply_deliveries()
         if self._desynced or len(self.skipped_steps) > n_skipped:
-            return False                 # gated: not a checkpoint, no stall
+            return False    # gated or partial: not a checkpoint, no stall
         inline = time.perf_counter() - t1
         # the channel's parts sum in order to its stall bit-exactly; the
         # bounded-lag wait is split out of the inline hand-off

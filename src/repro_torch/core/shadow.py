@@ -498,16 +498,38 @@ class ShadowCluster:
             "shadow_node_deaths_total",
             "Shadow nodes lost (partition dropped)").inc(1, node=node_id)
 
-    def on_delivery(self, delivery: Delivery):
-        """Consume one complete channel delivery (the only gradient
-        ingress); a gated one is refused."""
-        if not delivery.complete or delivery.flats is None:
-            raise ValueError(f"refusing gated delivery for step "
-                             f"{delivery.step}: capture incomplete")
+    def on_delivery(self, delivery: Delivery, nodes: Optional[set] = None):
+        """Consume one channel delivery (the only gradient ingress).
+
+        Each node is handed only its own buckets of ``delivery.flats``: a
+        sharded transport's partial delivery lacks the other owners'.
+        ``nodes`` restricts the apply to those node ids (the sharded
+        transport's per-owner gate, ``Delivery.node_complete``); every one
+        of them must be complete. Without ``nodes`` the delivery must be
+        complete as a whole. A refused delivery raises ValueError.
+        """
+        if nodes is not None:
+            nc = delivery.node_complete
+            bad = sorted(n for n in nodes
+                         if not (delivery.complete if nc is None
+                                 else nc.get(n, False)))
+            if bad:
+                raise ValueError(
+                    f"refusing sharded delivery for step {delivery.step}: "
+                    f"capture incomplete for nodes {bad}")
+        elif not delivery.complete:
+            raise ValueError(
+                f"refusing gated delivery for step {delivery.step}: "
+                f"capture incomplete ({delivery.missing_captures} missing)")
+        if delivery.flats is None:
+            raise ValueError(f"delivery for step {delivery.step} carries no "
+                             f"flats")
         step, flats = delivery.step, delivery.flats
         self.train_step_seen = step
-        live = [n for n in self.nodes if n.node_id not in self.dead_nodes]
-        for node in live:
+        targets = [n for n in self.nodes
+                   if n.node_id not in self.dead_nodes
+                   and (nodes is None or n.node_id in nodes)]
+        for node in targets:
             item = (step, delivery.lr,
                     {bid: flats[bid] for bid in node.bucket_ids},
                     delivery.grad_scale)

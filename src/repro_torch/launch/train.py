@@ -5,13 +5,15 @@
         --batch 4 --seq 32 --checkpointer checkmate --fail-at 3,5
     python -m repro_torch.launch.train --steps 5 --batch 8 --seq 2048 \
         --checkpointer sync --fail-at 4            # full width, on the card
+    python -m repro_torch.launch.train --reduced --device cpu \
+        --channel packetized --topology rail-optimized --compress
 
 Prints a JSON report (the JAX CLI's keys) and the one-screen metrics
-digest. The flags are the JAX CLI's, except: ``--channel`` offers
-``inprocess`` only and ``--topology`` is gone (both wait for the fabric),
-``--mesh`` is gone (one device), ``--device {cuda,cpu}`` is new (default
-``cuda``; it raises without a GPU) and so is ``--max-lag-steps`` (the
-async shadow's lag bound). ``--optimizer`` other than ``adamw`` raises.
+digest. The flags are the JAX CLI's (``--channel {inprocess,packetized}``
+and ``--topology`` included), except: ``--mesh`` is gone (one device),
+``--device {cuda,cpu}`` is new (default ``cuda``; it raises without a GPU)
+and so is ``--max-lag-steps`` (the async shadow's lag bound).
+``--optimizer`` other than ``adamw`` raises.
 
 `run` does the work and returns the report with the run's objects;
 `main` prints them.
@@ -39,8 +41,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--checkpointer", default="checkmate",
                     choices=CHECKPOINTERS)
     ap.add_argument("--freq", type=int, default=1)
-    ap.add_argument("--channel", default="inprocess", choices=["inprocess"],
-                    help="gradient delivery transport for checkmate")
+    ap.add_argument("--channel", default="inprocess",
+                    choices=["inprocess", "packetized"],
+                    help="gradient delivery transport for checkmate "
+                         "(packetized = buckets -> frames -> fabric)")
+    ap.add_argument("--topology", default="rail-optimized",
+                    choices=["rail-optimized", "leaf-spine", "single"],
+                    help="fabric topology for --channel packetized")
     ap.add_argument("--shadow-nodes", type=int, default=2)
     ap.add_argument("--shadow-async", action="store_true")
     ap.add_argument("--max-lag-steps", type=int, default=None,
@@ -73,7 +80,8 @@ def build_checkpointer(args: argparse.Namespace, state0, opt, device):
     """The checkpointer ``args`` selects; Checkmate's shadow is bootstrapped
     from ``state0`` on ``device``."""
     from repro_torch.core.buckets import layout_for_tree
-    from repro_torch.core.channel import CompressedChannel, InProcessChannel
+    from repro_torch.core.channel import (CompressedChannel,
+                                          InProcessChannel, PacketizedChannel)
     from repro_torch.core.checkpoint import (
         AsyncCheckpointer, CheckFreqCheckpointer, CheckmateCheckpointer,
         GeminiLikeCheckpointer, NoCheckpointer, ShardedAsyncCheckpointer,
@@ -94,7 +102,11 @@ def build_checkpointer(args: argparse.Namespace, state0, opt, device):
                            async_mode=args.shadow_async, device=device,
                            max_lag_steps=args.max_lag_steps)
     shadow.bootstrap(state0.params, state0.mu, state0.nu, state0.step)
-    channel = InProcessChannel()
+    if args.channel == "packetized":
+        channel = PacketizedChannel(topology=args.topology,
+                                    n_shadow_nodes=args.shadow_nodes)
+    else:
+        channel = InProcessChannel()
     if args.compress:
         channel = CompressedChannel(channel)
     return CheckmateCheckpointer(shadow, channel=channel)

@@ -18,8 +18,8 @@ Both calls are near-zero-cost no-ops until a session is installed:
         print(ob.metrics.to_prometheus())
 
 The span and metric names are the JAX package's (docs/ARCHITECTURE.md,
-docs/observability.md). The fabric's simulated-time spans and counters are
-left out until the fabric is ported.
+docs/observability.md), the fabric's simulated-time spans and counters
+included.
 
 CLI: ``python -m repro_torch.obs {trace,summary,diff}``.
 """

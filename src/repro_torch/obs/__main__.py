@@ -13,7 +13,7 @@ Subcommands:
 Examples::
 
     PYTHONPATH=src python -m repro_torch.obs summary --train tinyllama-1.1b \
-        --steps 5 --device cpu
+        --steps 5 --device cpu --channel packetized
     PYTHONPATH=src python -m repro_torch.obs trace --train tinyllama-1.1b \
         --manual-clock --out run.trace.json
     PYTHONPATH=src python -m repro_torch.obs diff before.json after.json
@@ -43,7 +43,8 @@ def _add_run_args(ap: argparse.ArgumentParser):
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=16)
-    ap.add_argument("--channel", default="inprocess", choices=["inprocess"],
+    ap.add_argument("--channel", default="inprocess",
+                    choices=["inprocess", "packetized"],
                     help="gradient transport for --train")
     ap.add_argument("--shadow-nodes", type=int, default=2)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -54,7 +55,7 @@ def _add_run_args(ap: argparse.ArgumentParser):
 def _run_train(args, ob):
     from repro_torch import configs
     from repro_torch.core.buckets import layout_for_tree
-    from repro_torch.core.channel import InProcessChannel
+    from repro_torch.core.channel import InProcessChannel, PacketizedChannel
     from repro_torch.core.checkpoint import CheckmateCheckpointer
     from repro_torch.core.shadow import ShadowCluster
     from repro_torch.device import resolve
@@ -69,7 +70,11 @@ def _run_train(args, ob):
     shadow = ShadowCluster(layout_for_tree(s0.params), opt,
                            n_nodes=args.shadow_nodes, device=device)
     shadow.bootstrap(s0.params, s0.mu, s0.nu, 0)
-    ck = CheckmateCheckpointer(shadow, channel=InProcessChannel())
+    if args.channel == "packetized":
+        channel = PacketizedChannel(n_shadow_nodes=args.shadow_nodes)
+    else:
+        channel = InProcessChannel()
+    ck = CheckmateCheckpointer(shadow, channel=channel)
     train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, opt=opt,
           lr_fn=lambda _: 1e-3, checkpointer=ck, seed=0, state=s0,
           device=device)

@@ -2,15 +2,11 @@
 the port's copy of ``repro.obs.publish``.
 
 The instrumented hot paths update cheap native counters in place
-(`ShadowNode` apply stats, checkpointer stall ledgers); these publishers
-mirror that state into labeled registry metrics *once per run* so every
-number ends up behind a single exposition surface. Duck-typed on attribute
-presence, so any channel/checkpointer/shadow combination (or a bare subset)
-publishes cleanly.
-
-The JAX package's fabric and PFC counters (frames, loss events, pause
-time, fabric time) and their digest rows are left out until the fabric is
-ported.
+(`FabricTotals`, `ShadowNode` apply stats, checkpointer stall ledgers);
+these publishers mirror that state into labeled registry metrics *once per
+run* so every number ends up behind a single exposition surface.
+Duck-typed on attribute presence, so any channel/checkpointer/shadow
+combination (or a bare subset) publishes cleanly.
 """
 from __future__ import annotations
 
@@ -18,7 +14,7 @@ from repro_torch.obs.stalls import format_stall_report, publish_stalls
 
 
 def _unwrap_channels(channel):
-    """The channel plus its ``.inner`` chain (Compressed->InProcess)."""
+    """The channel plus its ``.inner`` chain (Compressed->Packetized etc.)."""
     out = []
     while channel is not None and channel not in out:
         out.append(channel)
@@ -61,8 +57,8 @@ def publish_shadow(reg, shadow) -> None:
 
 
 def publish_channel(reg, channel) -> None:
-    """Send accounting for a channel stack (outermost first), from the
-    native ``totals`` of a channel that keeps them."""
+    """Wire/fabric accounting for a channel stack (outermost first), from
+    the native ``totals`` of a channel that keeps them."""
     for ch in _unwrap_channels(channel):
         name = getattr(ch, "name", type(ch).__name__)
         totals = getattr(ch, "totals", None)
@@ -76,6 +72,31 @@ def publish_channel(reg, channel) -> None:
         reg.counter("channel_wire_bytes_total",
                     "Bytes put on the wire (incl. replication)").inc(
             totals.wire_bytes, channel=name)
+        frames = reg.counter("fabric_frames_total",
+                             "Frames by lifecycle stage")
+        for kind in ("tx", "rx", "mirrored"):
+            frames.inc(getattr(totals, f"frames_{kind}"), kind=kind)
+        loss = reg.counter("fabric_loss_events_total",
+                           "Loss/recovery events in the fabric")
+        for kind in ("drops", "retransmits", "rerouted", "mirror_lost"):
+            loss.inc(getattr(totals, kind), kind=kind)
+        reg.counter("fabric_pfc_pauses_total", "PFC pause frames").inc(
+            totals.pfc_pauses)
+        reg.counter("fabric_pfc_resumes_total", "PFC resume frames").inc(
+            totals.pfc_resumes)
+        reg.counter("fabric_pfc_pause_seconds_total",
+                    "Aggregate link-paused virtual time").inc(
+            totals.pfc_pause_s)
+        reg.counter("fabric_time_seconds_total",
+                    "Simulated fabric time consumed").inc(
+            totals.fabric_time_s)
+        pause_g = reg.gauge("fabric_link_pfc_pause_seconds",
+                            "Paused virtual time per link")
+        pauses_c = reg.counter("fabric_link_pfc_pauses_total",
+                               "Pause frames per link")
+        for link, st in sorted(totals.link_pfc.items()):
+            pause_g.set(st.get("pause_s", 0.0), link=link)
+            pauses_c.inc(st.get("pauses", 0), link=link)
 
 
 def collect_run(reg, checkpointer=None, shadow=None, channel=None) -> dict:
@@ -123,9 +144,18 @@ def render_digest(snapshot: dict, ck=None) -> str:
          _val(snapshot, "shadow_apply_max_seconds"))
         if _val(snapshot, "shadow_apply_mean_seconds") is not None else None,
         "{0[0]:.6f}s / {0[1]:.6f}s")
+    frames = {k: _val(snapshot, "fabric_frames_total", kind=k)
+              for k in ("tx", "rx", "mirrored")}
+    if any(v is not None for v in frames.values()):
+        lines.append("  {:<26} tx={} rx={} mirrored={}".format(
+            "frames", *(frames[k] or 0 for k in ("tx", "rx", "mirrored"))))
     wire = snapshot.get("metrics", {}).get("channel_wire_bytes_total")
     if wire and wire["samples"]:
         row("bytes on wire", sum(s["value"] for s in wire["samples"]))
+    row("fabric time", _val(snapshot, "fabric_time_seconds_total"),
+        "{:.6f}s")
+    row("pfc pause time",
+        _val(snapshot, "fabric_pfc_pause_seconds_total"), "{:.6f}s")
     stall_fam = snapshot.get("metrics", {}).get(
         "checkpoint_stall_seconds_total")
     if stall_fam and stall_fam["samples"]:

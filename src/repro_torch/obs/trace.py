@@ -2,19 +2,23 @@
 the port's copy of ``repro.obs.trace``.
 
 Spans are emitted at every stage boundary of the capture->shadow pipeline
-(step compute, bucket pack, channel send, shadow apply, resync, recovery),
-on ``pid 1``, the **host wall clock**: spans are timed with the tracer's
-injected clock (default ``time.perf_counter``; `ManualClock` for
-deterministic golden traces).
+(step compute, bucket pack, channel send, per-frame fabric traversal,
+shadow apply, resync, recovery). Two *clock domains* live on separate
+process tracks in the export:
 
-The JAX package's second clock domain (``pid 2``, the fabric simulator's
-virtual time, with ``fabric_span`` and ``fabric_advance``) is left out
-until the fabric is ported.
+* ``pid 1`` — **host wall clock**: spans timed with the tracer's injected
+  clock (default ``time.perf_counter``; `ManualClock` for deterministic
+  golden traces).
+* ``pid 2`` — **simulated fabric time**: the event-driven simulator's
+  virtual timestamps (`Frame.t_send`/``t_arrive``, `FabricResult
+  .duration_s`). Each fabric iteration is laid out after the previous one
+  via ``fabric_advance``, so a multi-step run reads as a contiguous
+  virtual-time timeline.
 
 The tracer is *near-zero-cost when disabled*: ``span()`` returns one
-shared no-op context manager and ``instant`` returns immediately, so hot
-paths may call them unconditionally. ``maxlen`` makes the event buffer a
-ring that keeps only the trailing trace window.
+shared no-op context manager and ``instant``/``fabric_span`` return
+immediately, so hot paths may call them unconditionally. ``maxlen`` makes
+the event buffer a ring that keeps only the trailing trace window.
 """
 from __future__ import annotations
 
@@ -25,7 +29,9 @@ from collections import deque
 from typing import Optional
 
 HOST_PID = 1
-_PROCESS_NAMES = {HOST_PID: "host (wall clock)"}
+FABRIC_PID = 2
+_PROCESS_NAMES = {HOST_PID: "host (wall clock)",
+                  FABRIC_PID: "fabric (simulated time)"}
 
 
 class ManualClock:
@@ -92,6 +98,7 @@ class Tracer:
         self._tracks: dict[tuple, int] = {}
         self._lock = threading.Lock()
         self._seq = 0
+        self.fabric_base_s = 0.0           # virtual-time offset of this step
 
     # -- emission ------------------------------------------------------------
     def _tid(self, pid: int, track: str) -> int:
@@ -130,6 +137,22 @@ class Tracer:
             return
         t = self._clock() - self._t0
         self._emit(name, HOST_PID, track, cat, t, t, args)
+
+    # -- fabric (simulated-time) clock domain --------------------------------
+    def fabric_span(self, name: str, t0_s: float, t1_s: float,
+                    track: str = "fabric", args: Optional[dict] = None):
+        """One span on the simulated-time tracks, at this step's virtual
+        offset. ``t0_s``/``t1_s`` are simulator timestamps within the
+        current fabric iteration (e.g. ``Frame.t_send``/``t_arrive``)."""
+        if not self.enabled:
+            return
+        base = self.fabric_base_s
+        self._emit(name, FABRIC_PID, track, "fabric",
+                   base + t0_s, base + t1_s, args)
+
+    def fabric_advance(self, duration_s: float):
+        """Lay the next fabric iteration after this one in virtual time."""
+        self.fabric_base_s += max(duration_s, 0.0)
 
     # -- export --------------------------------------------------------------
     def events(self) -> list[dict]:

@@ -23,6 +23,12 @@ RUNS = {
     "checkmate --compress": ["--checkpointer", "checkmate", "--compress"],
     "checkmate --shadow-async": ["--checkpointer", "checkmate",
                                  "--shadow-async", "--max-lag-steps", "2"],
+    "checkmate --channel packetized": [
+        "--checkpointer", "checkmate", "--channel", "packetized",
+        "--shadow-async", "--max-lag-steps", "2"],
+    "checkmate --channel packetized --compress": [
+        "--checkpointer", "checkmate", "--channel", "packetized",
+        "--topology", "leaf-spine", "--compress"],
     **{name: ["--checkpointer", name]
        for name in ("sync", "async", "torch_dcp", "gemini", "checkfreq")},
 }
@@ -69,8 +75,9 @@ def test_every_checkpointer_recovers_twice(run, jax_report_keys, capsys):
     if checkmate:
         assert set(report["shadow"]) == set(jax_report_keys["shadow"])
         assert report["shadow"]["lag"] == 0
-        assert report["channel"] == ("compressed[inprocess]"
-                                     if "--compress" in run else "inprocess")
+        base = "packetized" if "packetized" in run else "inprocess"
+        assert report["channel"] == (f"compressed[{base}]"
+                                     if "--compress" in run else base)
 
 
 def test_none_runs_and_cannot_recover():

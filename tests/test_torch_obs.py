@@ -220,3 +220,57 @@ def test_cli_summary_and_trace_of_a_train_run(tmp_path, capsys):
     assert {"step.compute", "channel.send", "shadow.apply"} <= names
     with pytest.raises(SystemExit, match="not ported"):
         tcli.main(["summary", "--scenario", "inprocess-clean"])
+
+
+# -- the fabric's counters and spans ----------------------------------------
+
+def _fabric_sends(mod_ch, mod_obs, layout, flats_of):
+    """Three sends through a packetized channel (step 2's capture lost)
+    under a ManualClock session: the trace export, the published
+    snapshot and its digest."""
+    chan = mod_ch.PacketizedChannel(n_shadow_nodes=2, replication_factor=2,
+                                    failures_at={2: "capture"})
+    chan.open(layout)
+    with mod_obs.enabled_session(clock=mod_obs.ManualClock(0.0)) as ob:
+        for step in (1, 2, 3):
+            chan.send(mod_ch.StepEvent(step=step, flats=flats_of(step),
+                                       lr=1e-3))
+        trace = json.dumps(ob.tracer.export(), sort_keys=True)
+    reg = mod_obs.MetricsRegistry()
+    pub = tpub if mod_obs is tobs else jpub
+    snap = pub.collect_run(reg, channel=chan)
+    return trace, snap, pub.render_digest(snap), reg.to_prometheus()
+
+
+def test_fabric_counters_spans_and_digest_as_repro_obs():
+    from repro.core import channel as jch
+    from repro.core.buckets import layout_for_tree as j_layout
+    rng = np.random.default_rng(5)
+    params = {k: rng.standard_normal(s).astype(np.float32)
+              for k, s in SHAPES.items()}
+    jl = j_layout(params, cap_bytes=4096)
+    tl = layout_for_tree({k: torch.from_numpy(v) for k, v in params.items()},
+                         cap_bytes=4096)
+
+    def flats(step):
+        r = np.random.default_rng(step)
+        return {b.bucket_id: r.standard_normal(b.size).astype(np.float32)
+                for b in jl.buckets}
+    want = _fabric_sends(jch, jobs, jl, flats)
+    got = _fabric_sends(tch, tobs, tl, lambda s: {
+        b: torch.from_numpy(f) for b, f in flats(s).items()})
+    assert got == want
+    trace, snap, digest, prom = got
+    m = snap["metrics"]
+    assert m["channel_sends_total"]["samples"][0]["value"] == 3
+    assert m["channel_gated_total"]["samples"][0]["value"] == 1
+    assert "fabric_time_seconds_total" in m and "frames " in digest
+    assert '"fabric (simulated time)"' in trace
+
+
+def test_cli_summary_over_the_fabric(capsys):
+    assert tcli.main(["summary", "--train", "tinyllama-1.1b", "--steps", "2",
+                      "--device", "cpu", "--channel", "packetized"]) == 0
+    out = capsys.readouterr().out
+    for row in ("frames", "bytes on wire", "fabric time", "pfc pause time"):
+        assert row in out
