@@ -25,7 +25,8 @@ Phases, in order; any failed check raises and the script exits nonzero:
              checkpointer: none; checkmate (2 async nodes, lag bound 2);
              checkmate --compress; the same two over ``--channel
              packetized --topology rail-optimized`` (the gradients cross
-             the simulated multicast fabric); sync; async; torch_dcp;
+             the simulated multicast fabric; these two at 6 layers,
+             ``--layers 6``); sync; async; torch_dcp;
              gemini; checkfreq. Every run but none fails at step 4. Each
              stall ledger must sum bit for bit, none must book no stall,
              each Checkmate run must lose no step at the failure, each
@@ -42,12 +43,34 @@ Phases, in order; any failed check raises and the script exits nonzero:
              surviving shard stays bitwise the trainer's, and both fabric
              engines give one result; a one-node apply at full width times
              what its staged receive hides.
+6. durability — the durable shadow plane at full width and depth:
+             train() through a CheckmateCheckpointer with a DurableShadow
+             (2 async nodes, lag bound 2, one LocalDiskTier under a
+             temporary directory whose free space is checked first):
+             raw — FlushPolicy(every_steps=2), 6 steps, a failure at step
+             4; after drain() the last complete durable step is 6, no
+             flush, durability or tier stage is in the ledger (which sums
+             bit for bit), and after kill_node(1) (node 0's live shard
+             merged with node 1's from the tier) and then after the loss
+             of the whole plane, recover(tiers=...) gives the trainer's
+             final params, mu and nu bit for bit (the total loss raising
+             ShadowNodeLoss with total set and durable_hint
+             ("local-disk", 6)); compressed — the same with int8 deltas, 4
+             steps: each delta epoch smaller than the base, the total-loss
+             restore within atol 1e-2 of the params; Adam and SGD at 2
+             layers, 3 steps, a flush every step: shadow and restores
+             bitwise; and the shadow planner (one measured apply on the
+             card, and the cost model with the durability terms). Each run
+             reports step and iteration medians beside phase 4's step,
+             stall per checkpoint, flush and locked-snapshot ms, bytes per
+             epoch, tier lag, disk peak and write rate, restore ms, and
+             device and host peaks.
 
 Output: a ``main_path`` JSON line, a ``flash_d128`` and a ``pack_host``
-timing line, a ``kernels`` JSON line, a ``checkpointers`` JSON line, the
-card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
-beside it, it exits nonzero.
+timing line, a ``kernels`` JSON line, a ``checkpointers`` JSON line, a
+``durability`` JSON line, the card's name and power limit, and as the last
+line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+repository beside it, it exits nonzero.
 """
 from __future__ import annotations
 
@@ -84,7 +107,12 @@ CKPT_STEPS, CKPT_FAIL = 5, 4
 # only sums, which the first steps' pinned allocations inflate)
 MEDIAN_SPANS = ("checkpoint.on_step", "channel.quantize", "channel.send",
                 "fabric.simulate", "capture.d2h", "shadow.apply")
-PACKETIZED = ("--channel", "packetized", "--topology", "rail-optimized")
+# the packetized rows run at PACKETIZED_LAYERS layers (full width): the
+# host simulating the fabric costs about 1.3 s a step at full depth, and
+# the whole script must stay well inside its time limit
+PACKETIZED_LAYERS = 6
+PACKETIZED = ("--channel", "packetized", "--topology", "rail-optimized",
+              "--layers", str(PACKETIZED_LAYERS))
 CKPT_RUNS = (
     ("none", ()),
     ("checkmate", ("--shadow-async", "--max-lag-steps", "2")),
@@ -731,6 +759,8 @@ def ckpt_run(cfg, name: str, extra: tuple) -> dict:
     iter_ms = statistics.median(iters[1:]) * 1e3
     row = {
         "run": label, "steps_run": st.steps, "report": r.report,
+        "layers": (int(extra[extra.index("--layers") + 1])
+                   if "--layers" in extra else cfg.num_layers),
         "step_ms": st.steady_iter * 1e3, "iter_ms": iter_ms,
         "tokens_per_s": tokens / iter_ms * 1e3,
         "step_ms_all": [t * 1e3 for t in st.iter_times],
@@ -1065,6 +1095,357 @@ def phase_checkpointers(cfg, dev) -> dict:
             "runs": rows, "codec": codec, "shadow": small}
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+# Phase 6: the durable shadow plane at MAIN_RUN's width, depth, batch and
+# seq. The raw run fails at DUR_FAIL; every run flushes every DUR_EVERY
+# steps to one local-disk tier under a temporary directory.
+DUR_STEPS, DUR_FAIL, DUR_EVERY = 6, 4, 2
+DUR_COMPRESSED_STEPS, DUR_SMALL_STEPS = 4, 3
+STALL_WORDS = ("flush", "durability", "tier")     # no such stage may appear
+
+
+class DiskPeak:
+    """The peak bytes of the files under ``root`` over a ``with`` block,
+    and the least ``MemAvailable`` of the machine, sampled every 20 ms."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.peak = 0
+        self.mem_available_min = None
+        self._stop = threading.Event()
+
+    def _read(self) -> int:
+        total = 0
+        try:
+            with os.scandir(self.root) as it:
+                for e in it:
+                    try:
+                        total += e.stat().st_size
+                    except OSError:
+                        pass            # pruned or renamed meanwhile
+        except OSError:
+            pass
+        return total
+
+    def _poll(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._read())
+            avail = _proc_kb("/proc/meminfo", "MemAvailable")
+            if avail is not None:
+                self.mem_available_min = min(self.mem_available_min or avail,
+                                             avail)
+
+    def __enter__(self):
+        self._t = threading.Thread(target=self._poll, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, self._read())
+        return False
+
+
+def _logged_tier(root: str, retain: int, shadow):
+    """A `LocalDiskTier` that keeps every put's manifest entry, its record
+    step and the trainer's step when the put returned (retention prunes
+    the manifest itself)."""
+    from repro_torch.durability import LocalDiskTier
+
+    class LoggedTier(LocalDiskTier):
+        def __init__(self):
+            super().__init__(root, retain_epochs=retain)
+            self.log: list[dict] = []
+
+        def put(self, rec):
+            entry = super().put(rec)
+            self.log.append({"epoch": entry.epoch, "node": entry.node,
+                             "step": entry.step, "kind": entry.kind,
+                             "compressed": entry.compressed,
+                             "nbytes": entry.nbytes,
+                             "train_step": shadow.train_step_seen})
+            return entry
+    return LoggedTier()
+
+
+def _spans(events, name) -> list:
+    return [e for e in events if e["name"] == name]
+
+
+def _state_on_card_equal(state, ref, what: str):
+    """Two trainer states on the card bitwise equal."""
+    for tree in ("params", "mu", "nu"):
+        a, b = getattr(state, tree), getattr(ref, tree)
+        check(set(a) == set(b), f"{what}: {tree} leaf names differ")
+        for k, t in b.items():
+            check(torch.equal(a[k], t),
+                  f"{what}: {tree}[{k}] not bitwise equal to the trainer")
+
+
+def durable_run(cfg, label: str, *, steps: int, fail, compress: bool,
+                opt_name: str = "adamw", every: int = DUR_EVERY,
+                rebase: int = 2, retain: int = 1, step_ms_ref=None,
+                check_shadow: bool = False) -> dict:
+    """One training run through a CheckmateCheckpointer with a durable
+    shadow plane (2 async nodes, lag bound 2) at ``cfg``'s depth (with
+    ``check_shadow`` the shadow is then held bitwise to the trainer); then
+    a partial loss (node 1) and a total loss, each recovered through
+    ``recover(tiers=...)``: bitwise the trainer's final state, or for a
+    compressed plane a total-loss restore within atol 1e-2 of its params
+    (the JAX bound)."""
+    import shutil
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.core.buckets import layout_for_tree
+    from repro_torch.core.channel import InProcessChannel
+    from repro_torch.core.checkpoint import CheckmateCheckpointer
+    from repro_torch.core.recovery import FailurePlan, recover
+    from repro_torch.core.shadow import ShadowCluster, ShadowNodeLoss
+    from repro_torch.durability import DurableShadow, FlushPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.optim.functional import OptimizerConfig
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import make_train_state
+    _free()
+    opt = OptimizerConfig(name=opt_name)
+    root = tempfile.mkdtemp(prefix="chip-smoke-durability-")
+    try:
+        init = [make_train_state(cfg, seed=0, device="cuda")]
+        layout = layout_for_tree(init[0].params)
+        state_bytes = sum(b.size * 12 for b in layout.buckets)
+        # the chain on disk at its peak: the previous base and delta, and
+        # the new base being written before they are pruned (a compressed
+        # delta is about a quarter of the state)
+        need = state_bytes * (2.25 if compress else 3.0)
+        free = shutil.disk_usage(root).free
+        check(free >= need, f"{label}: {free} bytes free under {root}, the "
+                            f"run needs {int(need)}")
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        ops.reset_launch_counts()
+        with obs.enabled_session() as ob, RssPeak() as rss, \
+                DiskPeak(root) as disk:
+            shadow = ShadowCluster(layout, opt, n_nodes=2, async_mode=True,
+                                   max_lag_steps=2, device="cuda")
+            tier = _logged_tier(root, retain, shadow)
+            dur = DurableShadow([tier], FlushPolicy(
+                every_steps=every, compress=compress, rebase_every=rebase))
+            t0 = time.perf_counter()
+            ck = CheckmateCheckpointer(shadow, channel=InProcessChannel(),
+                                       durability=dur)
+            attach_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            shadow.bootstrap(init[0].params, init[0].mu, init[0].nu, 0)
+            bootstrap_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            state, st = train(cfg, steps=steps, batch=MAIN_RUN["batch"],
+                              seq=MAIN_RUN["seq"], opt=opt, checkpointer=ck,
+                              failure_plan=FailurePlan((fail,) if fail
+                                                       else ()),
+                              seed=0, state=init.pop(), device="cuda")
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            dur.drain()
+            events = ob.tracer.events()
+            lag_gauge = ob.metrics.gauge("durability_tier_lag_steps").value(
+                tier=tier.name)
+            peak_dev = torch.cuda.max_memory_allocated()
+            peak_reserved = torch.cuda.max_memory_reserved()
+            retries = torch.cuda.memory_stats().get("num_alloc_retries",
+                                                    0) - retries0
+            last = dur.last_complete_step(tier.name)
+            check(not dur.errors, f"{label}: flushes raised {dur.errors}")
+            check(last == steps, f"{label}: last complete durable step "
+                                 f"{last}, not {steps}")
+            total = 0.0
+            for sec in ck.stall_stages.values():
+                total += sec
+            check(ck.stall_total == total, f"{label}: ledger does not sum "
+                                           f"bit for bit")
+            check(not any(w in stage for stage in ck.stall_stages
+                          for w in STALL_WORDS),
+                  f"{label}: a flush stage in the ledger {ck.stall_stages}")
+            check(st.recoveries == int(bool(fail)),
+                  f"{label}: recoveries {st.recoveries}")
+            if fail:
+                check(st.recovered_at == [fail - 1],
+                      f"{label}: recovered at {st.recovered_at}")
+            if check_shadow:
+                ckpt = shadow.consolidate()
+                _state_equal(ckpt, state, f"{label}: shadow")
+                del ckpt
+                _free()
+            out_recover = {}
+            if not compress:
+                shadow.kill_node(1)
+                t0 = time.perf_counter()
+                got, at = recover(shadow, device="cuda", tiers=[tier])
+                torch.cuda.synchronize()
+                out_recover["partial_loss_restore_ms"] = \
+                    (time.perf_counter() - t0) * 1e3
+                check(at == steps, f"{label}: partial-loss recover at {at}")
+                _state_on_card_equal(got, state, f"{label}: partial loss")
+                del got
+                _free()
+            shadow.kill_node(0)
+            shadow.kill_node(1)
+            try:
+                shadow.consolidate()
+                fail_msg = "no ShadowNodeLoss"
+            except ShadowNodeLoss as e:
+                fail_msg = None
+                check(e.total and e.durable_hint == (tier.name, steps),
+                      f"{label}: total loss {e.total}, hint "
+                      f"{e.durable_hint}")
+            check(fail_msg is None, f"{label}: total loss raised "
+                                    f"{fail_msg}")
+            t0 = time.perf_counter()
+            got, at = recover(shadow, device="cuda", tiers=[tier])
+            torch.cuda.synchronize()
+            out_recover["total_loss_restore_ms"] = \
+                (time.perf_counter() - t0) * 1e3
+            check(at == steps, f"{label}: total-loss recover at {at}")
+            if not compress:
+                _state_on_card_equal(got, state, f"{label}: total loss")
+            else:
+                err = max((got.params[k] - t).abs().max().item()
+                          for k, t in state.params.items())
+                check(err <= 1e-2, f"{label}: compressed restore err {err} "
+                                   f"> atol 1e-2")
+                out_recover["restore_max_abs_err"] = err
+            del got
+            shadow.shutdown()
+            disk_end = tier.disk_bytes()
+            log = list(tier.log)
+        flush = _spans(events, "durability.flush")
+        locked = _spans(events, "durability.snapshot")
+        puts = _spans(events, "durability.put")
+        by_key = {(r["epoch"], r["node"]): r for r in log}
+        rates = [by_key[(e["args"]["epoch"], e["args"]["node"])]["nbytes"]
+                 / (e["dur"] / 1e6) / 1e9 for e in puts
+                 if (e["args"]["epoch"], e["args"]["node"]) in by_key]
+        epochs: dict = {}
+        for r in log:
+            ep = epochs.setdefault(r["epoch"], {"step": r["step"],
+                                                "kinds": [], "bytes": 0,
+                                                "lag": 0})
+            ep["kinds"].append(r["kind"] + ("*" if r["compressed"] else ""))
+            ep["bytes"] += r["nbytes"]
+            ep["lag"] = max(ep["lag"], r["train_step"] - r["step"])
+        base = [ep["bytes"] for ep in epochs.values()
+                if all(k == "base" for k in ep["kinds"])]
+        delta = [ep["bytes"] for ep in epochs.values()
+                 if not all(k == "base" for k in ep["kinds"])]
+        if compress:
+            check(delta and all(d < min(base) for d in delta),
+                  f"{label}: delta epochs {delta} not below the base "
+                  f"{base}")
+        iters = [(s + c + x) for s, c, x in zip(
+            st.iter_times, st.capture_times, st.stall_times)]
+        n_ck = max(ck.n_checkpoints, 1)
+        row = {
+            "run": label, "optimizer": opt_name, "layers": cfg.num_layers,
+            "steps": steps, "fail_at": fail, "compress": compress,
+            "every_steps": every, "rebase_every": rebase,
+            "retain_epochs": retain, "state_bytes": state_bytes,
+            "steps_run": st.steps, "recovered_at": st.recovered_at,
+            "step_ms": st.steady_iter * 1e3,
+            "step_ms_main_path": step_ms_ref,
+            "iter_ms": statistics.median(iters[1:]) * 1e3,
+            "step_ms_all": [t * 1e3 for t in st.iter_times],
+            "capture_ms_all": [t * 1e3 for t in st.capture_times],
+            "stall_ms_per_checkpoint": {k: v / n_ck * 1e3 for k, v
+                                        in ck.stall_stages.items()
+                                        if k != "consolidate-wait"},
+            "attach_s": attach_s, "bootstrap_s": bootstrap_s,
+            "train_s": train_s, "last_complete_step": last,
+            "flush_ms_median": (statistics.median(e["dur"] / 1e3
+                                                  for e in flush)
+                                if flush else None),
+            "flush_ms_all": [e["dur"] / 1e3 for e in flush],
+            "locked_ms_median": (statistics.median(e["dur"] / 1e3
+                                                   for e in locked)
+                                 if locked else None),
+            "locked_ms_all": [e["dur"] / 1e3 for e in locked],
+            "put_gb_per_s_median": (statistics.median(rates)
+                                    if rates else None),
+            "epochs": epochs,
+            "base_epoch_bytes": base, "delta_epoch_bytes": delta,
+            "delta_to_state": [d / state_bytes for d in delta],
+            "tier_lag_steps_max": max((ep["lag"] for ep in epochs.values()),
+                                      default=None),
+            "tier_lag_gauge_end": lag_gauge,
+            "disk_peak_bytes": disk.peak, "disk_end_bytes": disk_end,
+            "mem_available_min_gb": (disk.mem_available_min * 1024 / 1e9
+                                     if disk.mem_available_min else None),
+            "peak_device_gb": peak_dev / 1e9,
+            "peak_device_reserved_gb": peak_reserved / 1e9,
+            "alloc_retries": retries,
+            "host_peak_rss_gb": rss.peak / 1e9 if rss.peak is not None
+            else None,
+            "launches": launches, **out_recover}
+        print(f"durability: {label}: step {row['step_ms']:.2f} ms (main "
+              f"path {step_ms_ref}), flush median {row['flush_ms_median']} "
+              f"ms, locked median {row['locked_ms_median']} ms, epochs "
+              f"{ {k: (v['step'], v['kinds'], v['bytes']) for k, v in epochs.items()} }, "
+              f"disk peak {disk.peak / 1e9:.2f} GB, restores "
+              f"{out_recover}, device {row['peak_device_gb']:.2f} GB, host "
+              f"RSS {row['host_peak_rss_gb']} GB", flush=True)
+        return row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def plan_row(cfg, iter_s: float) -> dict:
+    """The shadow planner at full width: one measured apply on the card
+    and the cost model's plan with the durability terms."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.buckets import layout_for_tree
+    from repro_torch.core.shadow import plan_shadow_nodes
+    from repro_torch.models import registry
+    from repro_torch.optim.functional import OptimizerConfig
+    _free()
+    specs = registry.param_specs(cfg)
+    trial = {k: torch.empty(sp.shape, device="meta")
+             for k, sp in sorted(specs.items())}
+    layout = layout_for_tree(trial)
+    n, apply_s = plan_shadow_nodes(layout, OptimizerConfig(), iter_s, trial,
+                                   device="cuda")
+    plan = costmodel.plan_shadow_nodes(layout, iter_time_s=iter_s,
+                                       flush_every_steps=DUR_EVERY)
+    out = {"iter_s": iter_s, "measured_nodes": n,
+           "measured_apply_ms": apply_s * 1e3,
+           "costmodel": dataclasses.asdict(plan)}
+    print(f"durability: planner at {iter_s:.3f} s an iteration: measured "
+          f"{n} node(s), one apply {apply_s * 1e3:.2f} ms; cost model "
+          f"{plan.n_nodes} node(s), flush bound {plan.flush_bound}, disk "
+          f"bound {plan.disk_bound}", flush=True)
+    _free()
+    return out
+
+
+def phase_durability(cfg, step_ms_ref: float) -> dict:
+    raw = durable_run(cfg, "raw", steps=DUR_STEPS, fail=DUR_FAIL,
+                      compress=False, step_ms_ref=step_ms_ref)
+    packed = durable_run(cfg, "compressed", steps=DUR_COMPRESSED_STEPS,
+                         fail=None, compress=True, rebase=8,
+                         step_ms_ref=step_ms_ref)
+    small = dataclasses.replace(cfg, num_layers=2)
+    others = [durable_run(small, f"{name} at 2 layers",
+                          steps=DUR_SMALL_STEPS, fail=None, compress=False,
+                          opt_name=name, every=1, rebase=8, retain=None,
+                          check_shadow=True)
+              for name in ("adam", "sgd")]
+    plan = plan_row(cfg, raw["iter_ms"] / 1e3)
+    return {"model": cfg.name, "batch": MAIN_RUN["batch"],
+            "seq": MAIN_RUN["seq"], "shadow_nodes": 2, "max_lag_steps": 2,
+            "runs": [raw, packed, *others], "planner": plan}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -1074,15 +1455,30 @@ def main():
     cfg = configs.get("tinyllama-1.1b")
     dev = torch.device("cuda")
 
+    secs, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     phase_build()
+    lap("build")
     errs = {"fused_adamw": check_adamw(dev), "bucket_pack": check_pack(dev),
             **check_flash(dev)}
     rows, d128, pack_host = time_kernels(dev, cfg, errs)
+    lap("kernels")
     phase_small()
+    lap("small")
     main_out, launches = phase_main(cfg)
+    lap("main")
     for r in rows:
         r["launches"] = launches[r["name"]]
     ckpts = phase_checkpointers(cfg, dev)
+    lap("checkpointers")
+    durability = phase_durability(cfg, main_out["step_ms"])
+    lap("durability")
+    print(f"timing: seconds by phase {secs}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"main_path": main_out}))
@@ -1091,6 +1487,7 @@ def main():
     print(json.dumps({"pack_host": pack_host}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"checkpointers": ckpts}))
+    print(json.dumps({"durability": durability}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -293,17 +293,27 @@ class CheckmateCheckpointer(BaseCheckpointer):
     Either way the next ``state_fn`` resync makes the cluster whole: the
     shadow is re-bootstrapped (reviving dead owners) and the channel's
     ``revive_all()`` re-arms the transport.
+
+    ``durability`` (a `repro_torch.durability.DurableShadow`) is attached
+    to the shadow here: its flush epochs ride the shadow's own ingest
+    (``ShadowCluster.on_delivery`` -> ``notify``), so a gated capture opens
+    no epoch, and nothing of it touches the stall ledger. `finalize`
+    drains and closes it.
     """
     name = "checkmate"
     consumes_grads = True
 
     def __init__(self, shadow: ShadowCluster,
-                 channel: Optional[GradientChannel] = None):
+                 channel: Optional[GradientChannel] = None,
+                 durability=None):
         super().__init__(freq=1)
         self.shadow = shadow
         self.channel: GradientChannel = (channel if channel is not None
                                          else InProcessChannel())
         self.channel.open(shadow.layout)
+        self.durability = durability
+        if durability is not None and durability.cluster is not shadow:
+            durability.attach(shadow)
         self.skipped_steps: list[int] = []
         self.partial_steps: list[int] = []   # sharded: survivors-only applies
         self.resyncs: list[int] = []
@@ -403,3 +413,6 @@ class CheckmateCheckpointer(BaseCheckpointer):
             self.shadow.consolidate()
         except ShadowNodeLoss:
             pass        # dead nodes at shutdown: the partial is all there is
+        if self.durability is not None:
+            self.durability.drain()      # everything applied is durable
+            self.durability.close()

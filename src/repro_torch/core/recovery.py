@@ -1,9 +1,10 @@
 """Failure injection and recovery from the shadow checkpoint, the port of
-``repro.core.recovery`` (no durability tiers, no elastic restart yet).
+``repro.core.recovery`` (no elastic restart yet).
 
-Recovery consolidates the shadow partitions into a full checkpoint,
-rebuilds the trainer's state from it on the device, and resumes the
-data stream at the checkpoint step; the stream is a pure function of
+Recovery consolidates the shadow partitions into a full checkpoint — or,
+when shadow nodes are lost, rebuilds what they held from the durability
+tiers — rebuilds the trainer's state from it on the device, and resumes
+the data stream at the checkpoint step; the stream is a pure function of
 (seed, step), so the recovered run replays the identical batches.
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.shadow import ShadowCluster
+from repro_torch.core.shadow import ShadowCluster, ShadowNodeLoss
 from repro_torch.device import resolve
 from repro_torch.optim.functional import TrainState
 
@@ -59,9 +60,47 @@ def checkpoint_from_state(state: TrainState) -> dict:
 
 
 def recover(shadow: ShadowCluster, device=None,
-            timeout: Optional[float] = None) -> tuple[TrainState, int]:
-    """Consolidate the shadow cluster and rebuild the trainer's state;
-    returns (state, resume_step). A lost shadow node raises
-    `repro_torch.core.shadow.ShadowNodeLoss`."""
-    ckpt = shadow.consolidate(timeout=timeout)
+            timeout: Optional[float] = None,
+            allow_partial: bool = False,
+            tiers=None) -> tuple[TrainState, int]:
+    """Consolidate the shadow cluster and rebuild the trainer's state on
+    ``device``; returns (state, resume_step).
+
+    A lost shadow node surfaces as `ShadowNodeLoss` naming exactly the
+    missing buckets, and by default that propagates: recovery never hands
+    back a checkpoint with holes. ``tiers`` (`repro_torch.durability`
+    tiers) is the durable fallback. On a *partial* loss the dead owners'
+    shards are rebuilt from the tiers at exactly the survivors' step and
+    merged with the live partial; on a *total* loss
+    (``ShadowNodeLoss.total``) the whole checkpoint is restored from the
+    newest durable epoch (the one ``ShadowNodeLoss.durable_hint`` names).
+    Only where the tiers cannot serve does ``allow_partial=True`` rebuild
+    the surviving leaves alone.
+    """
+    try:
+        ckpt = shadow.consolidate(timeout=timeout)
+    except ShadowNodeLoss as e:
+        ckpt = None
+        if tiers:
+            from repro_torch.durability.restore import (
+                TierRestoreError, restore_from_tiers,
+                restore_shards_from_tiers)
+            try:
+                if e.total:
+                    ckpt = restore_from_tiers(tiers, shadow.layout,
+                                              n_nodes=shadow.n_nodes)
+                else:
+                    p, m, v = restore_shards_from_tiers(
+                        tiers, shadow.layout, e.dead_nodes,
+                        at_step=int(e.partial["step"]))
+                    ckpt = {"params": {**e.partial["params"], **p},
+                            "mu": {**e.partial["mu"], **m},
+                            "nu": {**e.partial["nu"], **v},
+                            "step": int(e.partial["step"])}
+            except TierRestoreError:
+                ckpt = None          # the tiers cannot serve: fall through
+        if ckpt is None:
+            if not allow_partial:
+                raise
+            ckpt = e.partial
     return state_from_checkpoint(ckpt, device), int(ckpt["step"])

@@ -4,12 +4,14 @@ per-iteration checkpoints — the port of ``repro.core.shadow``.
 Each node owns a byte-balanced set of gradient buckets (§4.2.4) and keeps
 params, mu and nu for exactly those buckets on its ``device``. With
 ``flat=True`` (default) they are per-bucket flat buffers in the layout
-deliveries arrive in, and an apply is one fused AdamW launch per bucket;
-``flat=False`` keeps per-leaf tensors and launches AdamW once per leaf
-after unpacking the bucket (the regression oracle). Either way the update
-is in place under ``state_lock`` (the JAX package donates the buffers to a
-jit instead), with the same host-computed f32 scalars as the trainer, so
-the two states are bit-identical.
+deliveries arrive in, and an apply is one optimizer update per bucket
+(`repro_torch.optim.functional.update_`: one fused AdamW launch for
+AdamW, the plain elementwise update for Adam and SGD); ``flat=False``
+keeps per-leaf tensors and updates once per leaf after unpacking the
+bucket (the regression oracle). Either way the update is in place under
+``state_lock`` (the JAX package donates the buffers to a jit instead),
+with the same host-computed f32 scalars as the trainer, so the two states
+are bit-identical.
 
 On the card every node runs its applies on a CUDA stream of its own, so
 they overlap the trainer's kernels, and receives host buckets through a
@@ -26,13 +28,20 @@ and replays them as K sequential updates (`ShadowNode.apply_batch`,
 bit-identical to K separate applies), and the trainer blocks in
 ``_lag_gate`` while a node's backlog is at the bound; the checkpointer
 books that wait as the ``apply-lag`` stall stage.
+
+Each apply marks its buckets ``dirty``; `ShadowNode.snapshot_dirty` is
+the durability flush's apply-atomic copy of them
+(`repro_torch.durability`), and `plan_shadow_nodes` sizes the fleet from
+one measured apply.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import queue
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Optional
 
@@ -45,34 +54,66 @@ from repro_torch.core.buckets import (ITEMSIZE, BucketLayout, alloc_flat,
 from repro_torch.core.channel import Delivery
 from repro_torch.core.multicast import assign_buckets
 from repro_torch.device import resolve
-from repro_torch.kernels import ops
-from repro_torch.optim.functional import OptimizerConfig
+from repro_torch.optim.functional import OptimizerConfig, update_
+
+
+APPLY_TIMES_MAXLEN = 512       # recent-apply window kept per node
 
 
 class ConsolidationTimeout(RuntimeError):
     """Consolidation hit its deadline with shadow nodes still applying.
-    ``partial`` is apply-atomic per node, at the slowest node's step."""
+    ``partial`` is apply-atomic per node, at the slowest node's step;
+    ``lagging_buckets`` maps each lagging node to its owned bucket ids."""
 
-    def __init__(self, lagging_nodes: list[int], partial: dict):
-        super().__init__(f"shadow consolidation timed out; lagging nodes: "
-                         f"{lagging_nodes} (partial checkpoint at step "
-                         f"{partial.get('step')})")
+    def __init__(self, lagging_nodes: list[int], partial: dict,
+                 lagging_buckets: Optional[dict] = None):
+        msg = (f"shadow consolidation timed out; lagging nodes: "
+               f"{lagging_nodes} (partial checkpoint at step "
+               f"{partial.get('step')})")
+        if lagging_buckets:
+            msg += f"; lagging buckets: {lagging_buckets}"
+        super().__init__(msg)
         self.lagging_nodes = lagging_nodes
         self.partial = partial
+        self.lagging_buckets = dict(lagging_buckets or {})
 
 
 class ShadowNodeLoss(RuntimeError):
     """Consolidation found lost shadow nodes: their partitions are gone.
-    ``missing_buckets`` is exactly the lost nodes' bucket ids."""
+
+    ``missing_buckets`` is exactly the lost nodes' bucket ids and
+    ``partial`` the survivors' fragments. ``total`` marks the loss of the
+    whole plane (nothing to merge: only the durability tiers can help);
+    ``durable_hint`` is ``(tier name, step)`` of the newest full restore
+    point when a `repro_torch.durability.DurableShadow` is attached. The
+    message is the JAX package's."""
 
     def __init__(self, dead_nodes: list[int], missing_buckets: dict,
-                 partial: dict):
-        super().__init__(f"shadow node(s) {dead_nodes} lost; missing "
-                         f"buckets: {missing_buckets} (partial checkpoint at "
-                         f"step {partial.get('step')})")
+                 partial: dict, total: bool = False,
+                 durable_hint: Optional[tuple] = None):
+        msg = (f"shadow node(s) {dead_nodes} lost; missing buckets: "
+               f"{missing_buckets} (partial checkpoint at step "
+               f"{partial.get('step')})")
+        if total:
+            msg = (f"TOTAL shadow-plane loss: all {len(dead_nodes)} "
+                   f"node(s) {dead_nodes} dead, every bucket missing")
+            if durable_hint is not None:
+                tname, tstep = durable_hint
+                msg += (f"; recover via restore_from_tiers() — newest "
+                        f"durable tier '{tname}' holds step {tstep}")
+            else:
+                msg += ("; no durability tier attached: the checkpoint "
+                        "is unrecoverable")
+        elif durable_hint is not None:
+            tname, tstep = durable_hint
+            msg += (f"; tier '{tname}' holds the missing shards durably "
+                    f"up to step {tstep}")
+        super().__init__(msg)
         self.dead_nodes = list(dead_nodes)
         self.missing_buckets = dict(missing_buckets)
         self.partial = partial
+        self.total = bool(total)
+        self.durable_hint = durable_hint
 
 
 def _as_tensor(x, device, copy: bool = False) -> torch.Tensor:
@@ -83,12 +124,13 @@ def _as_tensor(x, device, copy: bool = False) -> torch.Tensor:
 
 
 class ShadowNode:
-    """One shadow node: its buckets' state + fused AdamW, per bucket
-    (``flat=True``) or per leaf (``flat=False``)."""
+    """One shadow node: its buckets' state + the functional optimizer, per
+    bucket (``flat=True``) or per leaf (``flat=False``)."""
 
     def __init__(self, node_id: int, opt: OptimizerConfig,
                  layout: BucketLayout, bucket_ids: list[int],
-                 device: torch.device, flat: bool = True):
+                 device: torch.device, flat: bool = True,
+                 apply_times_maxlen: int = APPLY_TIMES_MAXLEN):
         self.node_id = node_id
         self.opt = opt
         self.layout = layout
@@ -117,7 +159,12 @@ class ShadowNode:
         self.params: dict[str, torch.Tensor] = {}
         self.mu: dict[str, torch.Tensor] = {}
         self.nu: dict[str, torch.Tensor] = {}
+        # bucket ids updated since a durability flush last drained them
+        # (`snapshot_dirty`); kept under state_lock
+        self.dirty: set[int] = set()
         self.step = 0
+        # bounded recent-apply window; the counters below stay exact
+        self.apply_times: deque = deque(maxlen=apply_times_maxlen)
         self.apply_count = 0
         self.apply_total_s = 0.0
         self.apply_max_s = 0.0
@@ -168,6 +215,7 @@ class ShadowNode:
         with self.state_lock:
             (self._pf, self._mf, self._vf,
              self.params, self.mu, self.nu) = state
+            self.dirty = set(self.bucket_ids)
             self.step = int(step)
 
     def snapshot(self) -> tuple[dict, dict, dict, int]:
@@ -190,7 +238,44 @@ class ShadowNode:
             nu.update(unpack_bucket(b, vf[bid]))
         return params, mu, nu, step
 
+    def snapshot_dirty(self, force_all: bool = False,
+                       out: Optional[dict] = None) -> tuple[dict, int]:
+        """Apply-atomic host copy of the dirty bucket flats; drains
+        ``dirty``. Returns ``({bucket_id: (p, m, v)}, step)`` in wire
+        layout, the durability flush payload. ``force_all`` copies every
+        owned bucket (a base record).
+
+        ``out`` (bucket_id -> (p, m, v) host tensors of the flats' sizes)
+        receives the copies instead of fresh tensors; on the card they run
+        on this node's stream, awaited before the lock is released, so the
+        time under the lock is the copy's (the ``durability.snapshot``
+        span).
+        """
+        if not self.flat:
+            raise ValueError("snapshot_dirty requires the flat wire layout")
+        with self.state_lock, _obs.get().tracer.span(
+                "durability.snapshot", track=f"durability{self.node_id}",
+                args={"node": self.node_id, "step": self.step}):
+            bids = self.bucket_ids if force_all else sorted(self.dirty)
+            bids = [b for b in bids if b in self._pf]      # lost: gone
+            snap = {}
+            with self._on_stream():
+                for bid in bids:
+                    src = (self._pf[bid], self._mf[bid], self._vf[bid])
+                    if out is None:
+                        snap[bid] = tuple(t.to("cpu", copy=True)
+                                          for t in src)
+                        continue
+                    for d, t in zip(out[bid], src):
+                        d.copy_(t, non_blocking=True)
+                    snap[bid] = out[bid]
+                self._sync()
+            self.dirty.difference_update(bids)
+            step = self.step
+        return snap, step
+
     def _record(self, dt: float):
+        self.apply_times.append(dt)
         self.apply_count += 1
         self.apply_total_s += dt
         self.apply_max_s = max(self.apply_max_s, dt)
@@ -264,20 +349,21 @@ class ShadowNode:
 
     def _apply(self, step, lr, flats, grad_scale):
         t0 = time.perf_counter()
-        s = self.opt.scalars(step, lr)
+        opt = self.opt
         if any(flats[bid].device.type == "cuda" for bid in self.bucket_ids):
             self._after_caller()
         with self.state_lock, self._on_stream():
             for bid, g in self._received(flats):
                 if self.flat:
-                    ops.fused_adamw_(self._pf[bid], g, self._mf[bid],
-                                     self._vf[bid], s, grad_scale)
+                    update_(self._pf[bid], g, self._mf[bid], self._vf[bid],
+                            step, opt, lr, grad_scale)
                     continue
                 for name, gl in unpack_bucket(self._by_id[bid], g).items():
-                    ops.fused_adamw_(self.params[name], gl, self.mu[name],
-                                     self.nu[name], s, grad_scale)
+                    update_(self.params[name], gl, self.mu[name],
+                            self.nu[name], step, opt, lr, grad_scale)
             # the host flats must outlive their copies: wait here
             self._sync()
+            self.dirty.update(self.bucket_ids)
             self.step = step
         self._record(time.perf_counter() - t0)
 
@@ -297,15 +383,23 @@ class ShadowStats:
 
 
 class ShadowCluster:
-    """Checkmate's shadow plane: N nodes x partitioned fused AdamW."""
+    """Checkmate's shadow plane: N nodes x a partitioned functional
+    optimizer.
+
+    ``assignment`` (bucket_id -> node) replaces the byte-balanced default
+    ownership; ``apply_times_maxlen`` bounds each node's ``apply_times``
+    window. ``durability`` is set by `repro_torch.durability.DurableShadow`
+    when one attaches: every ingest then calls its ``notify``, a bootstrap
+    its ``on_bootstrap`` and `shutdown` its ``close``.
+    """
 
     def __init__(self, layout: BucketLayout, opt: OptimizerConfig,
                  n_nodes: int = 1, async_mode: bool = False, device=None,
-                 flat: bool = True, max_lag_steps: Optional[int] = None):
+                 flat: bool = True,
+                 apply_times_maxlen: int = APPLY_TIMES_MAXLEN,
+                 assignment: Optional[dict] = None,
+                 max_lag_steps: Optional[int] = None):
         self.device = resolve(device)
-        if opt.name != "adamw":
-            raise NotImplementedError(f"optimizer {opt.name!r} is not "
-                                      "ported; only adamw")
         if max_lag_steps is not None:
             if max_lag_steps < 1:
                 raise ValueError(f"max_lag_steps must be >= 1, "
@@ -317,11 +411,13 @@ class ShadowCluster:
         self.opt = opt
         self.n_nodes = n_nodes
         self.flat = flat
-        self.assignment = assign_buckets(layout, n_nodes)
+        self.assignment = (dict(assignment) if assignment is not None
+                           else assign_buckets(layout, n_nodes))
         self.nodes = [
             ShadowNode(i, opt, layout,
                        [b for b, n in self.assignment.items() if n == i],
-                       self.device, flat=flat)
+                       self.device, flat=flat,
+                       apply_times_maxlen=apply_times_maxlen)
             for i in range(n_nodes)]
         self.async_mode = async_mode
         self.max_lag_steps = max_lag_steps
@@ -333,6 +429,7 @@ class ShadowCluster:
         self.max_batch = 1
         self.dead_nodes: set[int] = set()
         self.errors: dict[int, BaseException] = {}
+        self.durability = None
         self._queues: list[queue.Queue] = []
         self._drained: list[threading.Event] = []
         self._lag_cvs: list[threading.Condition] = []
@@ -464,6 +561,9 @@ class ShadowCluster:
         for node in self.nodes:
             node.bootstrap(params, mu, nu, step)
         self.train_step_seen = int(step)
+        if self.durability is not None:
+            # a full restore point from the moment the replica is seeded
+            self.durability.on_bootstrap(int(step))
 
     def kill_node(self, node_id: int):
         """Shadow-node death: the node's partition (params and both
@@ -548,6 +648,8 @@ class ShadowCluster:
                     "shadow_lag_steps",
                     "Shadow applier backlog at ingest (bounded by "
                     "max_lag_steps)").set(depth, node=node.node_id)
+        if self.durability is not None:
+            self.durability.notify(step)          # queue puts only
 
     def consolidate(self, timeout: Optional[float] = None) -> dict:
         """Gather a full checkpoint from the nodes' partitions, waiting up
@@ -561,14 +663,24 @@ class ShadowCluster:
                 lagging = self._wait_drained(
                     time.monotonic() + (60.0 if timeout is None else timeout))
                 if lagging:
-                    raise ConsolidationTimeout(lagging, self._gather())
+                    raise ConsolidationTimeout(
+                        lagging, self._gather(),
+                        lagging_buckets={i: tuple(self.nodes[i].bucket_ids)
+                                         for i in lagging})
             if self.dead_nodes:
                 dead = sorted(self.dead_nodes)
+                _obs.get().metrics.counter(
+                    "shadow_consolidate_missing_buckets_total",
+                    "Buckets unreachable at consolidate (dead owners)").inc(
+                    sum(len(self.nodes[n].bucket_ids) for n in dead))
                 err = next((self.errors[n] for n in dead
                             if n in self.errors), None)
                 raise ShadowNodeLoss(
                     dead, {n: tuple(self.nodes[n].bucket_ids) for n in dead},
-                    self._gather()) from err
+                    self._gather(), total=len(dead) == self.n_nodes,
+                    durable_hint=(self.durability.newest_durable()
+                                  if self.durability is not None
+                                  else None)) from err
             return self._gather()
 
     def _gather(self) -> dict:
@@ -606,6 +718,8 @@ class ShadowCluster:
             max_batch=self.max_batch)
 
     def shutdown(self):
+        if self.durability is not None:
+            self.durability.close()
         if self.async_mode:
             for q in self._queues:
                 q.put(None)
@@ -614,3 +728,40 @@ class ShadowCluster:
             self._queues, self._workers, self._drained = [], [], []
             self._lag_cvs = []
             self.async_mode = False
+
+
+def plan_shadow_nodes(layout: BucketLayout, opt: OptimizerConfig,
+                      iter_time_s: float, trial_tree: dict,
+                      max_nodes: int = 16, device=None) -> tuple[int, float]:
+    """Paper §4.2.4: 'Before starting training, Checkmate profiles shadow
+    nodes and configures the system for optimal performance.'
+
+    Measures one full-tree apply on one node on ``device`` (a gradient
+    delivered through an `InProcessChannel`, as the main path delivers
+    one) and returns the least node count whose per-node apply fits in an
+    iteration, with the measured single-node apply seconds.
+    """
+    from repro_torch.core.channel import InProcessChannel, StepEvent
+    cluster = ShadowCluster(layout, opt, n_nodes=1, device=device)
+    dev = cluster.device
+    zeros = {k: torch.zeros(v.shape, dtype=torch.float32, device=dev)
+             for k, v in trial_tree.items()}
+    cluster.bootstrap(zeros, zeros, zeros, 0)
+    del zeros
+    grads = {k: torch.ones(v.shape, dtype=torch.float32, device=dev)
+             for k, v in trial_tree.items()}
+    chan = InProcessChannel()
+    chan.open(layout)
+
+    def deliver(step):
+        chan.send(StepEvent(step=step, grads=grads, lr=1e-3))
+        for d in chan.poll():
+            cluster.on_delivery(d)
+
+    deliver(1)                                # warm-up
+    t0 = time.perf_counter()
+    deliver(2)
+    t1 = time.perf_counter() - t0
+    cluster.shutdown()
+    need = max(1, math.ceil(t1 / max(iter_time_s, 1e-9)))
+    return min(need, max_nodes), t1

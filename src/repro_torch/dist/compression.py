@@ -36,6 +36,17 @@ def _flush(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(x) < _TINY, x * 0.0, x)
 
 
+def _quantize(g: torch.Tensor, ef) -> tuple:
+    """``(q, scale, target)`` of `quantize_leaf`: ``target`` is the
+    flushed ``g + ef`` that ``q * scale`` approximates."""
+    ef = torch.as_tensor(ef, dtype=torch.float32, device=g.device)
+    target = _flush(_flush(g.to(torch.float32)) + _flush(ef))
+    scale = torch.max(torch.abs(target)) / _QMAX
+    safe = torch.clamp_min(scale, _TINY)
+    q = (target / safe).round_().clamp_(-_QMAX, _QMAX).to(torch.int8)
+    return q, safe, target
+
+
 def quantize_leaf(g: torch.Tensor, ef) -> tuple:
     """Quantize one gradient leaf with error feedback.
 
@@ -43,11 +54,7 @@ def quantize_leaf(g: torch.Tensor, ef) -> tuple:
     residual to carry into the next iteration
     (``dequantize_leaf(q, scale) + new_ef == g + ef`` exactly in f32).
     """
-    ef = torch.as_tensor(ef, dtype=torch.float32, device=g.device)
-    target = _flush(_flush(g.to(torch.float32)) + _flush(ef))
-    scale = torch.max(torch.abs(target)) / _QMAX
-    safe = torch.clamp_min(scale, _TINY)
-    q = torch.clamp(torch.round(target / safe), -_QMAX, _QMAX).to(torch.int8)
+    q, safe, target = _quantize(g, ef)
     deq = q.to(torch.float32) * safe
     return q, safe, _flush(target - deq)
 
@@ -67,7 +74,7 @@ def quantize_flat_stateless(bucket: Bucket, flat: torch.Tensor) -> tuple:
                          device=flat.device)
     for i, s in enumerate(bucket.slots):
         sl = slice(s.offset, s.offset + s.size)
-        q[sl], scales[i], _ = quantize_leaf(src[sl], 0.0)
+        q[sl], scales[i], _ = _quantize(src[sl], 0.0)
     return q, scales
 
 
@@ -77,8 +84,37 @@ def dequantize_flat_stateless(bucket: Bucket, q: torch.Tensor,
     out = torch.empty(bucket.size, dtype=torch.float32, device=q.device)
     for i, s in enumerate(bucket.slots):
         sl = slice(s.offset, s.offset + s.size)
-        out[sl] = dequantize_leaf(q[sl], scales[i])
+        torch.mul(q[sl].to(torch.float32), scales[i], out=out[sl])
     return out
+
+
+def init_error_feedback(tree: dict) -> dict:
+    """Zero residuals matching the gradient tree (leaf name -> tensor)."""
+    return {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+            for k, g in tree.items()}
+
+
+def compress_tree(tree: dict, ef: dict) -> tuple[dict, dict, int]:
+    """Quantize a gradient leaf tree; returns ``(deq, new_ef, wire_bytes)``.
+
+    ``deq`` is what the trainer applies and the shadow receives, so both
+    run the optimizer on the same dequantized gradients; ``wire_bytes`` is
+    the int8 payload plus one f32 scale per leaf.
+    """
+    deq, residuals, wire = {}, {}, 0
+    for k, g in tree.items():
+        q, scale, r = quantize_leaf(g, ef[k])
+        deq[k] = dequantize_leaf(q, scale)
+        residuals[k] = r
+        wire += q.numel() + 4
+    return deq, residuals, wire
+
+
+def compression_ratio(tree: dict) -> float:
+    """Uncompressed bytes / wire bytes for a gradient tree (~4x for f32)."""
+    raw = sum(t.numel() * t.element_size() for t in tree.values())
+    wire = sum(t.numel() + 4 for t in tree.values())
+    return raw / wire
 
 
 class Compressor:

@@ -11,9 +11,10 @@
 Prints a JSON report (the JAX CLI's keys) and the one-screen metrics
 digest. The flags are the JAX CLI's (``--channel {inprocess,packetized}``
 and ``--topology`` included), except: ``--mesh`` is gone (one device),
-``--device {cuda,cpu}`` is new (default ``cuda``; it raises without a GPU)
-and so is ``--max-lag-steps`` (the async shadow's lag bound).
-``--optimizer`` other than ``adamw`` raises.
+``--device {cuda,cpu}`` is new (default ``cuda``; it raises without a GPU),
+and so are ``--max-lag-steps`` (the async shadow's lag bound) and
+``--layers`` (the architecture cut to that depth at its full width).
+``--optimizer`` is ``adamw``, ``adam`` or ``sgd``; any other name raises.
 
 `run` does the work and returns the report with the run's objects;
 `main` prints them.
@@ -21,6 +22,7 @@ and so is ``--max-lag-steps`` (the async shadow's lag bound).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from dataclasses import dataclass
@@ -33,11 +35,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the architecture to this many layers")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--optimizer", default="adamw",
+                    help="adamw | adam | sgd")
     ap.add_argument("--checkpointer", default="checkmate",
                     choices=CHECKPOINTERS)
     ap.add_argument("--freq", type=int, default=1)
@@ -125,13 +130,12 @@ def run(argv=None) -> Run:
     from repro_torch.train.loop import train
     from repro_torch.train.step import make_train_state
 
-    if args.optimizer != "adamw":
-        raise NotImplementedError(f"optimizer {args.optimizer!r} is not "
-                                  "ported; only adamw")
     device = resolve(args.device)
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     opt = OptimizerConfig(name=args.optimizer, lr=args.lr)
     lr_fn = cosine_schedule(args.lr, warmup=5, total=args.steps)
     # held in a list that train() empties: at a recovery train() drops the

@@ -231,3 +231,38 @@ def test_compressed_train_run_books_quantize():
     assert ck.shadow.consolidate()["step"] == state.step == 3
     assert ck.channel.compressor.ratio > 3.5
     assert len(stats.capture_times) == 3
+
+
+# -- the leaf-tree path ----------------------------------------------------------
+
+def test_compress_tree_bitwise_jax_over_steps():
+    """``init_error_feedback`` then four ``compress_tree`` steps: the
+    dequantized tree, the residuals and the wire bytes bitwise the JAX
+    package's (zero and subnormal leaves included)."""
+    jef = jcp.init_error_feedback({k: np.zeros(s, np.float32)
+                                   for k, s in SHAPES.items()})
+    tef = tcp.init_error_feedback({k: torch.zeros(s)
+                                   for k, s in SHAPES.items()})
+    for k in SHAPES:
+        assert tef[k].dtype == torch.float32
+        assert _bits(tef[k].numpy()) == _bits(jef[k])
+    for g in _grads(11):
+        jdeq, jef, jwire = jcp.compress_tree(g, jef)
+        tdeq, tef, twire = tcp.compress_tree(
+            {k: torch.from_numpy(v) for k, v in g.items()}, tef)
+        assert twire == jwire == sum(v.size + 4 for v in g.values())
+        assert set(tdeq) == set(jdeq) == set(tef) == set(SHAPES)
+        for k in SHAPES:
+            assert _bits(tdeq[k].numpy()) == _bits(jdeq[k]), k
+            assert _bits(tef[k].numpy()) == _bits(jef[k]), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compression_ratio_equals_jax(dtype):
+    import ml_dtypes
+    np_dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    tree = {k: np.zeros(s, np_dt) for k, s in SHAPES.items()}
+    ttree = {k: torch.zeros(s, dtype=getattr(torch, dtype))
+             for k, s in SHAPES.items()}
+    assert tcp.compression_ratio(ttree) == jcp.compression_ratio(tree)
+    assert 1.5 < tcp.compression_ratio(ttree) < 4.0

@@ -2,8 +2,8 @@
 CPU at reduced size: every checkpointer recovers from two injected
 failures, and the report has the JAX CLI's keys.
 
-No numeric tolerance: the checks are counts (recoveries, checkpoints) and
-key sets.
+No numeric tolerance: the checks are counts (recoveries, checkpoints), key
+sets, and for ``--optimizer adam|sgd`` the shadow bitwise the trainer.
 """
 import json
 import sys
@@ -106,5 +106,26 @@ def test_needs_cuda_unless_cpu_is_asked_for():
 
 
 def test_other_optimizers_are_refused():
-    with pytest.raises(NotImplementedError, match="adam"):
-        launch.run(BASE + ["--optimizer", "adam"])
+    with pytest.raises(ValueError, match="lion"):
+        launch.run(BASE + ["--optimizer", "lion"])
+
+
+def test_layers_cuts_the_depth():
+    r = launch.run(BASE + ["--layers", "1", "--steps", "2"])
+    assert r.state.params["wq"].shape[0] == 1
+    assert r.checkpointer.shadow.consolidate()["step"] == 2
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+def test_adam_and_sgd_run_through_the_driver(optimizer):
+    """``--optimizer adam|sgd``: the run recovers from a failure and the
+    shadow ends bitwise the trainer's state."""
+    r = launch.run(BASE + ["--optimizer", optimizer, "--checkpointer",
+                           "checkmate", "--steps", "4", "--fail-at", "3"])
+    assert r.report["recoveries"] == 1 and r.report["shadow"]["lag"] == 0
+    assert r.checkpointer.shadow.opt.name == optimizer
+    ckpt = r.checkpointer.shadow.consolidate()
+    assert ckpt["step"] == r.state.step == 4
+    for tree in ("params", "mu", "nu"):
+        for k, t in getattr(r.state, tree).items():
+            assert torch.equal(ckpt[tree][k], t), f"{tree}[{k}]"

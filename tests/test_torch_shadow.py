@@ -3,11 +3,13 @@ delivery stream, and against the port's own trainer update.
 
 Tolerance between the packages: rtol 1e-5 / atol 1e-6 on params and
 moments after the stream (the JAX package computes ``b1 ** step`` on its
-device, the port once on the host). Inside the port the cluster must be
-bitwise equal to ``apply_updates``: both run the same AdamW with the same
-f32 scalars; the per-leaf path (``flat=False``) and bounded-lag batched
-replay must be bitwise equal to the flat, sequential cluster. Bucket
-ownership, lost buckets and the stats fields must equal the JAX package's.
+device, the port once on the host), for AdamW, Adam and SGD alike, and the
+same on one leaf or flat update. Inside the port the cluster must be
+bitwise equal to ``apply_updates``: both run the same update with the
+same f32 scalars; the per-leaf path (``flat=False``) and bounded-lag
+batched replay must be bitwise equal to the flat, sequential cluster.
+Bucket ownership, lost buckets and the stats fields must equal the JAX
+package's.
 """
 import os
 import sys
@@ -21,11 +23,13 @@ import repro.core.channel as jch
 import repro.core.shadow as jsh
 from repro.core.buckets import layout_for_tree as j_layout
 from repro.optim import OptimizerConfig as JOpt
+from repro.optim import functional as jfn
 
 from repro_torch.convert import to_numpy
 from repro_torch.core import channel as tch
 from repro_torch.core import shadow as tsh
 from repro_torch.core.buckets import layout_for_tree as t_layout
+from repro_torch.optim import functional as tfn
 from repro_torch.optim.functional import (OptimizerConfig, TrainState,
                                           apply_updates)
 
@@ -51,9 +55,9 @@ def _zeros(params):
     return {k: np.zeros_like(v) for k, v in params.items()}
 
 
-def _run_jax(params, grads, n_nodes, async_mode):
+def _run_jax(params, grads, n_nodes, async_mode, name="adamw"):
     layout = j_layout(params, cap_bytes=CAP)
-    cl = jsh.ShadowCluster(layout, JOpt(), n_nodes=n_nodes,
+    cl = jsh.ShadowCluster(layout, JOpt(name=name), n_nodes=n_nodes,
                            async_mode=async_mode)
     cl.bootstrap(params, _zeros(params), _zeros(params), 0)
     ch = jch.InProcessChannel()
@@ -67,11 +71,12 @@ def _run_jax(params, grads, n_nodes, async_mode):
     return out
 
 
-def _run_port(params, grads, n_nodes, async_mode):
+def _run_port(params, grads, n_nodes, async_mode, name="adamw"):
     tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
     layout = t_layout(tparams, cap_bytes=CAP)
-    cl = tsh.ShadowCluster(layout, OptimizerConfig(), n_nodes=n_nodes,
-                           async_mode=async_mode, device="cpu")
+    cl = tsh.ShadowCluster(layout, OptimizerConfig(name=name),
+                           n_nodes=n_nodes, async_mode=async_mode,
+                           device="cpu")
     cl.bootstrap(tparams, _zeros(params), _zeros(params), 0)
     ch = tch.InProcessChannel()
     ch.open(layout)
@@ -345,3 +350,153 @@ def test_lag_bound_and_a_node_death_under_thread_stress(monkeypatch):
         assert set(partial[tree]) == set(want[tree]) - lost
         for k, t in partial[tree].items():
             assert torch.equal(t, want[tree][k]), f"{tree}[{k}]"
+
+
+# -- Adam and SGD --------------------------------------------------------------
+
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("name", ["adamw", "adam", "sgd"])
+def test_leaf_and_flat_updates_match_jax(name, flat):
+    rng = np.random.default_rng(9)
+    p, g, m = (rng.standard_normal(300).astype(np.float32) for _ in range(3))
+    v = np.abs(rng.standard_normal(300)).astype(np.float32)
+    jopt, topt = JOpt(name=name, momentum=0.8), \
+        OptimizerConfig(name=name, momentum=0.8)
+    for step, lr, scale in ((1, 1e-3, 1.0), (7, 3e-4, 0.625)):
+        if flat:
+            want = jfn.UPDATE_FNS_FLAT[name](p, g, m, v, np.float32(step),
+                                             jopt, lr, scale)
+            got = tfn.UPDATE_FNS_FLAT[name](*map(torch.from_numpy,
+                                                 (p, g, m, v)),
+                                            step, topt, lr, scale)
+        else:
+            want = jfn.UPDATE_FNS[name](p, g * np.float32(scale), m, v,
+                                        np.float32(step), jopt, lr)
+            got = tfn.UPDATE_FNS[name](*map(torch.from_numpy, (
+                p, g * np.float32(scale), m, v)), step, topt, lr)
+        for a, b, what in zip(got, want, "pmv"):
+            assert a.dtype == torch.float32
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{name} {what}")
+
+
+def test_unknown_optimizer_is_refused():
+    with pytest.raises(ValueError, match="lion"):
+        OptimizerConfig(name="lion")
+
+
+@pytest.mark.parametrize("async_mode", [False, True])
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_adam_sgd_cluster_matches_jax_and_is_bitwise_the_trainer(
+        name, async_mode):
+    """The shadow's flat update (per bucket) against JAX to the stated
+    tolerance, and bitwise the port's trainer update (per leaf)."""
+    params, grads = _stream(6)
+    want = _run_jax(params, grads, 2, async_mode, name)
+    got, _, _ = _run_port(params, grads, 2, async_mode, name)
+    state = TrainState(
+        params={k: torch.from_numpy(v.copy()) for k, v in params.items()},
+        mu={k: torch.zeros(s) for k, s in SHAPES.items()},
+        nu={k: torch.zeros(s) for k, s in SHAPES.items()}, step=0)
+    opt = OptimizerConfig(name=name)
+    for g, lr, sc in zip(grads, LRS, SCALES):
+        apply_updates(state, {k: torch.from_numpy(v) for k, v in g.items()},
+                      opt, lr, sc)
+    for tree in ("params", "mu", "nu"):
+        for k, t in getattr(state, tree).items():
+            assert torch.equal(got[tree][k], t), f"{tree}[{k}]"
+            np.testing.assert_allclose(to_numpy(t), np.asarray(want[tree][k]),
+                                       rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{tree}[{k}]")
+    if name == "sgd":
+        assert all(not t.any() for t in state.nu.values())
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_adam_sgd_per_leaf_shadow_bitwise_equals_flat(name):
+    params, grads = _stream(7)
+    want = _deliver(*_cluster(params, n_nodes=2), grads)
+    tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    layout = t_layout(tparams, cap_bytes=CAP)
+    outs = []
+    for flat in (True, False):
+        cl = tsh.ShadowCluster(layout, OptimizerConfig(name=name),
+                               n_nodes=2, device="cpu", flat=flat)
+        cl.bootstrap(tparams, _zeros(params), _zeros(params), 0)
+        outs.append(_deliver(cl, layout, grads))
+    _bitwise(*outs)
+    assert not torch.equal(outs[0]["params"]["a_embed"],
+                           want["params"]["a_embed"])
+
+
+# -- assignment, apply window, lagging buckets, lost-bucket counter -------------
+
+def test_assignment_and_apply_times_window():
+    params, grads = _stream(8)
+    tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    layout = t_layout(tparams, cap_bytes=CAP)
+    owners = {b.bucket_id: (b.bucket_id + 1) % 3 for b in layout.buckets}
+    cl = tsh.ShadowCluster(layout, OptimizerConfig(), n_nodes=3,
+                           device="cpu", assignment=owners,
+                           apply_times_maxlen=2)
+    jcl = jsh.ShadowCluster(j_layout(params, cap_bytes=CAP), JOpt(),
+                            n_nodes=3, assignment=owners)
+    assert cl.assignment == owners
+    assert [n.bucket_ids for n in cl.nodes] == \
+        [n.bucket_ids for n in jcl.nodes]
+    cl.bootstrap(tparams, _zeros(params), _zeros(params), 0)
+    _bitwise(_deliver(cl, layout, grads),
+             _deliver(*_cluster(params, n_nodes=2), grads))
+    for n in cl.nodes:
+        assert n.apply_count == len(LRS) and len(n.apply_times) == 2
+        assert n.apply_times.maxlen == 2
+    assert tsh.APPLY_TIMES_MAXLEN == jsh.APPLY_TIMES_MAXLEN
+    jcl.shutdown()
+
+
+def test_consolidation_timeout_names_lagging_buckets(monkeypatch):
+    params, grads = _stream(9)
+    _throttle(monkeypatch, 0.5)
+    cl, layout = _cluster(params, n_nodes=2, async_mode=True)
+    ch = tch.InProcessChannel()
+    ch.open(layout)
+    ch.send(tch.StepEvent(step=1, lr=1e-3, grads={
+        k: torch.from_numpy(v) for k, v in grads[0].items()}))
+    (d,) = ch.poll()
+    cl.on_delivery(d)
+    with pytest.raises(tsh.ConsolidationTimeout) as exc:
+        cl.consolidate(timeout=0.01)
+    e = exc.value
+    assert e.lagging_nodes == [0, 1]
+    assert e.lagging_buckets == {n.node_id: tuple(n.bucket_ids)
+                                 for n in cl.nodes}
+    assert "lagging buckets: " in str(e)
+    assert cl.consolidate(timeout=30)["step"] == 1
+    cl.shutdown()
+
+
+def test_lost_buckets_are_counted_at_consolidate():
+    from repro_torch import obs
+    params, _ = _stream()
+    cl, _ = _cluster(params, n_nodes=3)
+    with obs.enabled_session() as ob:
+        cl.kill_node(2)
+        with pytest.raises(tsh.ShadowNodeLoss) as exc:
+            cl.consolidate()
+    assert not exc.value.total and exc.value.durable_hint is None
+    assert ob.metrics.counter(
+        "shadow_consolidate_missing_buckets_total").value() == \
+        len(cl.nodes[2].bucket_ids) > 0
+    cl.shutdown()
+
+
+def test_plan_shadow_nodes_measures_one_apply():
+    params, _ = _stream()
+    tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    layout = t_layout(tparams, cap_bytes=CAP)
+    n, t = tsh.plan_shadow_nodes(layout, OptimizerConfig(), 1e9, tparams,
+                                 device="cpu")
+    assert n == 1 and t > 0
+    n, t = tsh.plan_shadow_nodes(layout, OptimizerConfig(name="sgd"), 1e-12,
+                                 tparams, max_nodes=5, device="cpu")
+    assert n == 5 and t > 0
