@@ -5,21 +5,27 @@
 Phases, in order; any failed check raises and the script exits nonzero:
 
 1. build   — compile the CUDA kernels from src/repro_torch/kernels/csrc;
-             the tensor-core flash kernel must not spill.
+             no instance of either flash kernel may spill.
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             (AdamW and pack bitwise, both flash kernels to a tolerance), on
-             test shapes and again on every leaf and bucket of the main
-             path, and time kernel, plain version, bound and one library
-             call (the library call is a yardstick only; the port never
-             makes it).
+             (AdamW and pack bitwise, both flash kernels to a tolerance, at
+             head dims from 8 to 256 in bf16 and f32, each case on the
+             kernel ``route`` names), on test shapes and again on every
+             leaf and bucket of the main path, and time kernel, plain
+             version, bound and one library call (the library call is a
+             yardstick only; the port never makes it).
 3. small   — a reduced model at f32 compute trains the same on the card
-             (kernels) as on the CPU (plain versions).
+             (kernels) as on the CPU (plain versions); then tinyllama-1.1b
+             at full width and 2 layers, f32 compute, 1 microbatch, batch
+             2 x seq 2048, 2 steps: finite losses, the mma.sync flash kernel
+             2 x layers x microbatches times a step, and the first step's
+             loss within rtol 1e-4 of a forward on the CPU with the plain
+             versions. This is the f32 flash kernel's path.
 4. main    — tinyllama-1.1b at full width: train() with an in-process channel
              into a 2-node async shadow on the card, 6 steps, a failure at
              step 4; the consolidated checkpoint must equal the trainer's
              params, mu and nu bit for bit, every kernel of the path must
-             have run, the tensor-core flash kernel 2 x layers x
-             microbatches times a step and the SIMT flash kernel never.
+             have run, the wgmma flash kernel 2 x layers x microbatches
+             times a step and the mma.sync flash kernel never.
 5. checkpointers — the training CLI (``repro_torch.launch.train.run``)
              at full width and depth, ``--freq 1``, 5 steps, once per
              checkpointer: none; checkmate (2 async nodes, lag bound 2);
@@ -66,8 +72,8 @@ Phases, in order; any failed check raises and the script exits nonzero:
              epoch, tier lag, disk peak and write rate, restore ms, and
              device and host peaks.
 
-Output: a ``main_path`` JSON line, a ``flash_d128`` and a ``pack_host``
-timing line, a ``kernels`` JSON line, a ``checkpointers`` JSON line, a
+Output: a ``main_path`` JSON line, ``flash_d128``, ``flash_f32_d128``,
+``flash_bf16_d80`` and ``pack_host`` timing lines, a ``kernels`` JSON line, a ``checkpointers`` JSON line, a
 ``durability`` JSON line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits nonzero.
@@ -94,6 +100,7 @@ import torch  # noqa: E402
 H100_BYTES_PER_S = 3.35e12           # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12             # dense tensor cores, bf16
 H100_F32_FLOPS = 67e12               # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12             # dense tensor cores, TF32
 
 # The main path's run: global batch 8 x seq 2048 through an in-process
 # channel into a 2-node async shadow on the card. tools/profile_port.py
@@ -168,7 +175,7 @@ def phase_build():
             fn = line.split("Function properties for")[-1].strip()
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
-        if fn and "flash_fwd_kernel_wgmma" in fn and "spill" in line:
+        if fn and "flash_fwd_kernel" in fn and "spill" in line:
             check(" 0 bytes spill stores, 0 bytes spill loads" in line,
                   f"build: {fn} spills: {line.strip()}")
 
@@ -253,12 +260,22 @@ def check_pack(dev) -> float:
 # The head_dim-128 shape timed beside the main path's (the dense configs
 # after tinyllama have head_dim 128): (b, s, h, kv, d, dtype, causal).
 FLASH_D128 = (1, 2048, 32, 8, 128, torch.bfloat16, True)
+# f32 at head_dim 128 (refused before the mma.sync kernel), and bf16 at
+# vit-h-14's heads (head_dim 80, the wgmma kernel zero-filled to 128)
+FLASH_F32_D128 = (1, 2048, 32, 8, 128, torch.float32, True)
+FLASH_BF16_D80 = (2, 2048, 16, 16, 80, torch.bfloat16, True)
 FLASH_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (1e-2, 1e-4)}
+# head dims held against the plain version. bf16: the zero-filled wgmma
+# instances (multiples of 8 up to 128), then the mma.sync kernel's (7: an
+# odd d, loaded element by element); f32, all on the mma.sync kernel (3 and
+# 33: rows copied 4 bytes at a time)
+FLASH_BF16_DIMS = (8, 16, 24, 48, 72, 80, 96, 112, 128, 20, 100, 160, 256, 7)
+FLASH_F32_DIMS = (8, 16, 20, 32, 64, 80, 96, 128, 160, 256, 3, 33)
 
 
 def check_flash(dev) -> dict:
     """Both flash kernels against the plain version; returns the worst
-    error in ``o`` of each."""
+    error in ``o`` of each kernel and input dtype, keyed "name:dtype"."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import route
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -278,9 +295,16 @@ def check_flash(dev) -> dict:
         for causal in (True, False):  # GQA 8:1 and 1:1
             cases += [(1, 100, 8, 1, d, torch.bfloat16, causal),
                       (1, 1000, 8, 8, d, torch.bfloat16, causal)]
+    # every head dim route() takes: ragged s, GQA 4:1, both mask settings
+    for dt, dims in ((torch.bfloat16, FLASH_BF16_DIMS),
+                     (torch.float32, FLASH_F32_DIMS)):
+        for d in dims:
+            for causal in (True, False):
+                cases.append((1, 300, 8, 2, d, dt, causal))
     cases += [(2, 2048, 32, 4, 64, torch.bfloat16, True),   # main path
-              FLASH_D128]
-    worst = {"flash_attention_wgmma": 0.0, "flash_attention_simt": 0.0}
+              FLASH_D128, FLASH_F32_D128, FLASH_BF16_D80,
+              (2, 2048, 32, 4, 64, torch.float32, True)]    # phase 3's
+    worst, ratios = {}, {}
     for case in cases:
         b, s, h, kv, d, dt, causal = case
         rtol, atol = FLASH_TOL[dt]
@@ -298,7 +322,9 @@ def check_flash(dev) -> dict:
         ratio = (diff / (rtol * orf.float().abs() + atol)).max().item()
         err = diff.max().item()
         lerr = (lse - lref).abs().max().item()
-        worst[name] = max(worst[name], err)
+        key = f"{name}:{str(dt).removeprefix('torch.')}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        ratios[key] = max(ratios.get(key, 0.0), ratio)
         check(ratio <= 1.0, f"flash o {case} err {err}: {ratio:.3f} times "
                             f"the limit {rtol}*|ref| + {atol}")
         check(lerr <= 1e-4, f"flash lse {case} err {lerr} > 1e-4")
@@ -309,7 +335,8 @@ def check_flash(dev) -> dict:
                   f"{ratio:.3f} of the limit; rows past s/2: max err {late}, "
                   f"mean |o| {size}", flush=True)
     print(f"kernels: flash within tolerance on {len(cases)} cases "
-          f"(o: 2e-5 f32, 1e-2*|ref| + 1e-4 bf16; lse 1e-4)", flush=True)
+          f"(o: 2e-5 f32, 1e-2*|ref| + 1e-4 bf16; lse 1e-4); worst share of "
+          f"the limit {ratios}", flush=True)
     return worst
 
 
@@ -357,8 +384,9 @@ def check_main_shapes(dev, p, g, m, v, layout, s) -> dict:
 def time_kernels(dev, cfg, errs: dict) -> tuple[list[dict], dict, dict]:
     """Each kernel at the main path's shapes: checked against its plain
     version there, then timed with the plain version, bound and library
-    yardstick. Returns the kernels' rows, the tensor-core flash kernel's
-    row at head_dim 128, and the pack wrapper's host time per call."""
+    yardstick. Returns the kernels' rows, the flash rows at shapes no path
+    runs (by their output line's name), and the pack wrapper's host time
+    per call."""
     from repro_torch.core.buckets import layout_for_tree
     from repro_torch.kernels import bucket_pack, ops, ref
     from repro_torch.models import registry
@@ -460,27 +488,40 @@ def time_kernels(dev, cfg, errs: dict) -> tuple[list[dict], dict, dict]:
 
     b, sq = MAIN_RUN["batch"] // cfg.microbatches, MAIN_RUN["seq"]
     main_shape = (b, sq, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
-    rows.append(flash_row(dev, gen, "flash_attention_wgmma", main_shape,
-                          torch.bfloat16, errs))
-    rows.append(flash_row(dev, gen, "flash_attention_simt", main_shape,
-                          torch.float32, errs))
-    d128 = flash_row(dev, gen, "flash_attention_wgmma", FLASH_D128[:5],
-                     torch.bfloat16, errs)
-    d128["shape"] = FLASH_D128[:5]
-    for r in rows + [d128]:
+    rows.append(flash_row(dev, gen, main_shape, torch.bfloat16, errs))
+    rows.append(flash_row(dev, gen, main_shape, torch.float32, errs))
+    extra = {label: flash_row(dev, gen, case[:5], case[5], errs)
+             for label, case in (("flash_d128", FLASH_D128),
+                                 ("flash_f32_d128", FLASH_F32_D128),
+                                 ("flash_bf16_d80", FLASH_BF16_D80))}
+    for r in rows + list(extra.values()):
         r["route"] = "cuda"
-        print(f"timing: {r['name']}: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
-    return rows, d128, host
+        by = ", ".join(filter(None, (r["bound_by"], r.get("bound_unit"))))
+        other = (f"; on the f32 units {r['other_bound_ms']:.4f} ms"
+                 if "other_bound_ms" in r else "")
+        print(f"timing: {r['name']} {r.get('shape', '')}: kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({by}){other}", flush=True)
+    return rows, extra, host
 
 
-def flash_row(dev, gen, name, shape, dt, errs) -> dict:
-    """One flash kernel timed at (b, s, h, kv, d), causal, beside its plain
-    version and SDPA on kv expanded to h heads."""
+FLASH_SOURCES = {"flash_attention_wgmma": "flash_attention_wgmma.cu",
+                 "flash_attention_mma": "flash_attention.cu"}
+
+
+def flash_row(dev, gen, shape, dt, errs) -> dict:
+    """The flash kernel ``route`` picks, timed at (b, s, h, kv, d), causal,
+    beside its plain version and SDPA on kv expanded to h heads. Its bound
+    is that of the unit it runs on: bf16 products on the tensor cores
+    (wgmma), or at the TF32 rate three times for f32 and one and a half
+    times for bf16 (mma.sync, 3xTF32; bf16 splits only P), with the f32
+    units' bound beside it."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import route
     b, sq, h, kv, d = shape
+    name = f"flash_attention_{route(dt, d)}"
     q = (torch.randn((b, sq, h, d), generator=gen, device=dev) * 0.3).to(dt)
     k = (torch.randn((b, sq, kv, d), generator=gen, device=dev) * 0.3).to(dt)
     v = torch.randn((b, sq, kv, d), generator=gen, device=dev).to(dt)
@@ -491,19 +532,28 @@ def flash_row(dev, gen, name, shape, dt, errs) -> dict:
     flops = 4.0 * b * h * d * pairs
     item = q.element_size()
     nbytes = item * (q.numel() * 2 + k.numel() + v.numel()) + 4.0 * b * h * sq
-    bms, by = bound(nbytes, flops, H100_BF16_FLOPS if dt == torch.bfloat16
-                    else H100_F32_FLOPS)
-    src = {"flash_attention_wgmma": "flash_attention_wgmma.cu",
-           "flash_attention_simt": "flash_attention.cu"}[name]
+    extra = {}
+    if name == "flash_attention_wgmma":
+        bms, by = bound(nbytes, flops, H100_BF16_FLOPS)
+        extra["bound_unit"] = "bf16 tensor cores, 989 TFLOP/s"
+    else:
+        passes = 3.0 if dt == torch.float32 else 1.5
+        bms, by = bound(nbytes, passes * flops, H100_TF32_FLOPS)
+        extra["bound_unit"] = (f"TF32 tensor cores, {passes:g} passes, "
+                               f"495 TFLOP/s")
+        extra["other_bound_ms"], extra["other_bound_by"] = bound(
+            nbytes, flops, H100_F32_FLOPS)
+        extra["other_bound_unit"] = "f32 units, 67 TFLOP/s"
     row = dict(
-        name=name, source=f"src/repro_torch/kernels/csrc/{src}",
+        name=name, source=f"src/repro_torch/kernels/csrc/{FLASH_SOURCES[name]}",
         replaces="src/repro/kernels/flash_attention.py:80",
-        max_abs_err=errs[name],
+        max_abs_err=errs[f"{name}:{str(dt).removeprefix('torch.')}"],
         ms=time_ms(lambda: ops.flash_attention(q, k, v, True), 10),
         plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, True), 3, 1),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 10))
+            qt, kt, vt, is_causal=True), 10),
+        shape=list(shape), dtype=str(dt).removeprefix("torch."), **extra)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return row
@@ -511,8 +561,16 @@ def flash_row(dev, gen, name, shape, dt, errs) -> dict:
 
 # -- phase 3 -----------------------------------------------------------------
 
-def phase_small():
-    """A reduced model trains the same on the card as on the CPU."""
+# Phase 3's full-width f32 run: tinyllama-1.1b cut to SMALL_LAYERS layers
+# (widths untouched), f32 compute, one microbatch, SMALL_RUN's batch and seq.
+SMALL_LAYERS = 2
+SMALL_RUN = dict(steps=2, batch=2, seq=2048, seed=5)
+
+
+def phase_small() -> dict:
+    """A reduced model trains the same on the card as on the CPU; then the
+    full-width f32 run (the mma.sync flash kernel's path). Returns the
+    launch counts of the full-width run."""
     from repro_torch import configs
     from repro_torch.core.recovery import (checkpoint_from_state,
                                            state_from_checkpoint)
@@ -534,6 +592,62 @@ def phase_small():
           f"small: card losses {lg} vs CPU {lc} beyond rtol 1e-4")
     print(f"small: reduced model at f32, 3 steps, card losses {lg.tolist()} "
           f"vs CPU {lc.tolist()} (rtol 1e-4)", flush=True)
+    return small_full_width()
+
+
+def small_full_width() -> dict:
+    """tinyllama-1.1b at full width, SMALL_LAYERS layers, f32 compute, on
+    the card: finite losses, the mma.sync flash kernel launched 2 x layers
+    x microbatches a step (forward and the remat recompute), and the first
+    step's loss equal, to rtol 1e-4, to a forward of the same params and
+    batch on the CPU (plain versions). Returns the run's launch counts."""
+    from repro_torch import configs
+    from repro_torch.core.recovery import (checkpoint_from_state,
+                                           state_from_checkpoint)
+    from repro_torch.data.synthetic import SyntheticStream, device_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import make_train_state
+    cfg = dataclasses.replace(configs.get("tinyllama-1.1b"),
+                              num_layers=SMALL_LAYERS,
+                              compute_dtype="float32", microbatches=1)
+    run = SMALL_RUN
+    init = checkpoint_from_state(make_train_state(cfg, seed=run["seed"],
+                                                  device="cpu"))
+    ops.reset_launch_counts()
+    _, stats = train(cfg, steps=run["steps"], batch=run["batch"],
+                     seq=run["seq"], device="cuda", seed=run["seed"],
+                     state=state_from_checkpoint(init, "cuda"))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    lg = np.array(stats.losses)
+    check(lg.shape == (run["steps"],) and np.all(np.isfinite(lg)),
+          f"small: full-width losses {lg}")
+    want = 2 * cfg.num_layers * cfg.microbatches * stats.steps
+    check(launches["flash_attention_mma"] == want,
+          f"small: mma.sync flash launched {launches['flash_attention_mma']}"
+          f" times at full width, not {want}")
+    check(launches["flash_attention_wgmma"] == 0,
+          f"small: wgmma flash launched {launches['flash_attention_wgmma']} "
+          f"times on the f32 path")
+    t0 = time.perf_counter()
+    batch = device_batch(SyntheticStream(cfg, run["batch"], run["seq"],
+                                         seed=run["seed"]).batch_at(0), "cpu")
+    with torch.no_grad():
+        lc = float(registry.loss_fn(init["params"], cfg, batch))
+    cpu_s = time.perf_counter() - t0
+    check(math.isclose(lg[0], lc, rel_tol=1e-4, abs_tol=0.0),
+          f"small: full-width first loss {lg[0]} on the card vs {lc} on the "
+          f"CPU beyond rtol 1e-4")
+    del init, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"small: {cfg.name} at full width, {cfg.num_layers} layers, f32, "
+          f"batch {run['batch']} x seq {run['seq']}: card losses "
+          f"{lg.tolist()}, first vs the CPU forward {lc} (rtol 1e-4; CPU "
+          f"{cpu_s:.1f} s), flash launches {launches}", flush=True)
+    return launches
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -570,15 +684,15 @@ def phase_main(cfg, steps: int = 6) -> tuple[dict, dict]:
                   f"main: checkpoint {tree}[{k}] not bitwise equal")
     ran = stats.steps
     for name, n in launches.items():
-        if name != "flash_attention_simt":
+        if name != "flash_attention_mma":
             check(n > 0, f"main: kernel {name} never launched")
     # forward and remat recompute, per layer and microbatch, every step
     want = 2 * cfg.num_layers * cfg.microbatches * ran
     check(launches["flash_attention_wgmma"] == want,
           f"main: tensor-core flash launched "
           f"{launches['flash_attention_wgmma']} times, not {want}")
-    check(launches["flash_attention_simt"] == 0,
-          f"main: SIMT flash launched {launches['flash_attention_simt']} "
+    check(launches["flash_attention_mma"] == 0,
+          f"main: mma.sync flash launched {launches['flash_attention_mma']} "
           f"times on the bf16 path")
     n_params = sum(t.numel() for t in state.params.values())
     batch, seq = MAIN_RUN["batch"], MAIN_RUN["seq"]
@@ -1466,14 +1580,17 @@ def main():
     lap("build")
     errs = {"fused_adamw": check_adamw(dev), "bucket_pack": check_pack(dev),
             **check_flash(dev)}
-    rows, d128, pack_host = time_kernels(dev, cfg, errs)
+    rows, flash_extra, pack_host = time_kernels(dev, cfg, errs)
     lap("kernels")
-    phase_small()
+    small_launches = phase_small()
     lap("small")
     main_out, launches = phase_main(cfg)
     lap("main")
+    # each kernel's launches on its path: the f32 flash kernel's is phase
+    # 3's full-width run, every other kernel's phase 4
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = (small_launches if r["name"] == "flash_attention_mma"
+                         else launches)[r["name"]]
     ckpts = phase_checkpointers(cfg, dev)
     lap("checkpointers")
     durability = phase_durability(cfg, main_out["step_ms"])
@@ -1481,11 +1598,17 @@ def main():
     print(f"timing: seconds by phase {secs}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the flash rows also name their shape and dtype, the unit of their
+    # bound and, for the mma.sync kernel, the f32 units' bound beside it
+    more = ("shape", "dtype", "bound_unit", "other_bound_ms", "other_bound_by",
+            "other_bound_unit")
     print(json.dumps({"main_path": main_out}))
-    print(json.dumps({"flash_d128": {k: d128[k] for k in keys[:4] + keys[5:]
-                                     + ("shape",)}}))
+    for label, r in flash_extra.items():
+        print(json.dumps({label: {k: r[k] for k in keys[:4] + keys[5:] + more
+                                  if k in r}}))
     print(json.dumps({"pack_host": pack_host}))
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + more if k in r}
+                                  for r in rows]}))
     print(json.dumps({"checkpointers": ckpts}))
     print(json.dumps({"durability": durability}))
     smi = subprocess.run(

@@ -1,11 +1,17 @@
 // Flash-attention forward for bf16 on Hopper's tensor cores:
 // softmax(q k^T / sqrt(d)) v with an online softmax, emitting o in bf16 and
-// the row log-sum-exp (lse, natural log) in f32, for head_dim 64 and 128.
+// the row log-sum-exp (lse, natural log) in f32, at any head_dim d that is a
+// multiple of 8 up to 128.
 //
 // Replaces: src/repro/kernels/flash_attention.py::_flash_kernel, launched by
 // flash_attention (pl.pallas_call at flash_attention.py:80), for bf16 inputs.
-// f32 inputs, and bf16 with head_dim 8/16/32, keep the SIMT kernel in
-// flash_attention.cu (flash_attention.py::route picks).
+// Two instances, D = 64 (d <= 64) and D = 128 (d above that): the TMA unit
+// reads d columns and zero-fills the box to D, zero columns of q and k add
+// nothing to q k^T, and the output columns of v's zero columns are never
+// stored. So d = 80 does 128/80 = 1.6x the products of an exact instance.
+// The TMA unit needs 16-byte global strides, hence d % 8 == 0. f32 inputs,
+// and bf16 at any other d, take the mma.sync kernel in flash_attention.cu
+// (flash_attention.py::route picks).
 //
 // Bound on an H100 SXM: operations. At the main path's shape (b=2, s=2048,
 // h=32, kv=4, d=64, causal) one call is 34.4 GFLOP of products (q k^T and
@@ -210,15 +216,16 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-// q, o: (b, sq, h, D); k, v: (b, skv, hkv, D); lse: (b, h, sq). The tensor
-// maps describe q, k, v as (D, heads, s, b), innermost first.
+// q, o: (b, sq, h, d); k, v: (b, skv, hkv, d); lse: (b, h, sq); d <= D. The
+// tensor maps describe q, k, v as (d, heads, s, b), innermost first, and
+// their boxes are D columns wide.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                       int sq, int skv, int h, int hkv, int causal,
+                       int sq, int skv, int h, int hkv, int d, int causal,
                        float scale_log2) {
   constexpr int NBOX = D / kBox;
   constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
@@ -373,9 +380,10 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     const int row = rows[r];
     if (row >= sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* op = o + (((int64_t)b * sq + row) * h + hh) * D + cq;
+    __nv_bfloat16* op = o + (((int64_t)b * sq + row) * h + hh) * d + cq;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
+      if (8 * c >= d) continue;                // a zero-filled column of v
       const __nv_bfloat162 x = __floats2bfloat162_rn(
           acc[4 * c + 2 * r] * inv, acc[4 * c + 2 * r + 1] * inv);
       *reinterpret_cast<__nv_bfloat162*>(op + 8 * c) = x;
@@ -415,7 +423,8 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// (b, s, heads, d) bf16, contiguous, as a 4-D map with (64, 1, rows, 1) boxes.
+// (b, s, heads, d) bf16, contiguous, as a 4-D map with (64, 1, rows, 1) boxes;
+// columns past d read as zeros.
 bool encode(CUtensorMap* map, const void* ptr, int b, int s, int heads, int d,
             int rows) {
   EncodeTiled fn = encoder();
@@ -434,8 +443,8 @@ bool encode(CUtensorMap* map, const void* ptr, int b, int s, int heads, int d,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int b, int sq, int skv, int h, int hkv, int causal, float sm_scale,
-           cudaStream_t stream) {
+           int b, int sq, int skv, int h, int hkv, int d, int causal,
+           float sm_scale, cudaStream_t stream) {
   constexpr int smem = 1024 + BQ * D * 2 + STAGES * 2 * BK * D * 2 +
                        8 * (1 + 2 * STAGES);
   static bool attr = false;
@@ -447,32 +456,32 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     attr = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, q, b, sq, h, D, BQ) || !encode(&tk, k, b, skv, hkv, D, BK) ||
-      !encode(&tv, v, b, skv, hkv, D, BK))
+  if (!encode(&tq, q, b, sq, h, d, BQ) || !encode(&tk, k, b, skv, hkv, d, BK) ||
+      !encode(&tv, v, b, skv, hkv, d, BK))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(b * h), (unsigned)((sq + BQ - 1) / BQ));
   flash_fwd_kernel_wgmma<D><<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, reinterpret_cast<__nv_bfloat16*>(o), lse, sq, skv, h, hkv,
-      causal, sm_scale * 1.4426950408889634f);
+      d, causal, sm_scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16 q, o: (b, sq, h, d); k, v: (b, skv, hkv, d); lse: (b, h, sq) f32.
-// All contiguous, base addresses 16-byte aligned, d in {64, 128}.
+// All contiguous, base addresses 16-byte aligned, d % 8 == 0, 8 <= d <= 128.
 extern "C" int repro_flash_fwd_wgmma(const void* q, const void* k,
                                      const void* v, void* o, float* lse,
                                      int b, int sq, int skv, int h, int hkv,
                                      int d, int causal, float sm_scale,
                                      void* stream) {
   if (b <= 0 || sq <= 0 || skv <= 0) return (int)cudaSuccess;
-  if (hkv <= 0 || h % hkv != 0) return (int)cudaErrorInvalidValue;
+  if (hkv <= 0 || h % hkv != 0 || d < 8 || d > 128 || d % 8 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64)
-    return launch<64>(q, k, v, o, lse, b, sq, skv, h, hkv, causal, sm_scale, s);
-  if (d == 128)
-    return launch<128>(q, k, v, o, lse, b, sq, skv, h, hkv, causal, sm_scale,
-                       s);
-  return (int)cudaErrorInvalidValue;
+  if (d <= 64)
+    return launch<64>(q, k, v, o, lse, b, sq, skv, h, hkv, d, causal, sm_scale,
+                      s);
+  return launch<128>(q, k, v, o, lse, b, sq, skv, h, hkv, d, causal, sm_scale,
+                     s);
 }

@@ -1,10 +1,11 @@
 """Flash-attention forward wrapper: a CUDA kernel for tensors on the card,
 the plain version (`ref.flash_attention_ref`) for tensors on the CPU.
 
-Two kernels, chosen by :func:`route`: the tensor-core kernel
-(``csrc/flash_attention_wgmma.cu``) for bf16 with head_dim 64 or 128, and the
-SIMT kernel (``csrc/flash_attention.cu``) for f32 and for bf16 with a
-narrower head. Each counts its own launches.
+Two kernels, chosen by :func:`route`: the wgmma kernel
+(``csrc/flash_attention_wgmma.cu``) for bf16 at a head_dim that is a multiple
+of 8 up to 128, and the mma.sync kernel (``csrc/flash_attention.cu``, 3xTF32)
+for f32 and for bf16 at any other head_dim up to 256. Each counts its own
+launches.
 
 Returns ``(o, lse)``: the recompute backward of the model's attention
 (`repro_torch.models.layers.FlashAttention`) needs the row log-sum-exp.
@@ -19,21 +20,22 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
 launches_wgmma = build.LaunchCounter()
-launches_simt = build.LaunchCounter()
-WGMMA_HEAD_DIMS = (64, 128)
-SIMT_HEAD_DIMS = (8, 16, 32, 64)
+launches_mma = build.LaunchCounter()
+MAX_HEAD_DIM = 256
 
 
 def route(dtype, d: int) -> str:
     """The kernel that takes (dtype, head_dim) on the card: "wgmma" for bf16
-    at d 64 or 128, "simt" for f32 and for the other bf16 head dims."""
-    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+    at a d that is a multiple of 8 from 8 to 128 (the TMA unit needs 16-byte
+    row strides), "mma" for f32 and for bf16 at any other d up to 256."""
+    if dtype not in (torch.float32, torch.bfloat16) or not (
+            1 <= d <= MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention: no kernel for {dtype} at head_dim "
+                         f"{d} (float32 or bfloat16, 1 <= head_dim <= "
+                         f"{MAX_HEAD_DIM})")
+    if dtype == torch.bfloat16 and d % 8 == 0 and d <= 128:
         return "wgmma"
-    if dtype in (torch.float32, torch.bfloat16) and d in SIMT_HEAD_DIMS:
-        return "simt"
-    raise ValueError(f"flash_attention: no kernel for {dtype} at head_dim {d}"
-                     f" (bf16: {sorted(set(SIMT_HEAD_DIMS + WGMMA_HEAD_DIMS))}"
-                     f", f32: {list(SIMT_HEAD_DIMS)})")
+    return "mma"
 
 
 def _check(q, k, v):
@@ -86,6 +88,6 @@ def flash_attention(q, k, v, causal: bool = True):
     else:
         code = lib.repro_flash_fwd(*args, int(q.dtype == torch.bfloat16),
                                    1.0 / math.sqrt(d), stream)
-        build.check(code, "flash_attention (simt)")
-        launches_simt.add()
+        build.check(code, "flash_attention (mma)")
+        launches_mma.add()
     return o, lse

@@ -17,7 +17,7 @@ pack_bucket = _bp.pack
 
 COUNTERS = {"fused_adamw": _fw.launches,
             "flash_attention_wgmma": _fa.launches_wgmma,
-            "flash_attention_simt": _fa.launches_simt,
+            "flash_attention_mma": _fa.launches_mma,
             "bucket_pack": _bp.launches}
 
 

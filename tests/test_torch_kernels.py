@@ -6,6 +6,8 @@ Tolerances: AdamW and flash attention at f32 to rtol 1e-5 / atol 1e-6
 the host, and the two frameworks sum in other orders); bf16 outputs to one
 bf16 rounding step; the pack is exact.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -95,7 +97,9 @@ def test_adamw_scalars_are_f32_and_match_jax():
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,s,h,d", [(2, 128, 2, 16), (1, 256, 4, 32),
                                      (2, 64, 2, 8), (1, 64, 1, 64),
-                                     (1, 64, 2, 128)])
+                                     (1, 64, 2, 128), (1, 64, 2, 20),
+                                     (1, 64, 2, 80), (1, 64, 2, 96),
+                                     (1, 32, 1, 256)])
 def test_flash_attention_matches_pallas(b, s, h, d, causal):
     q, k, v = (jnp.asarray(RNG.standard_normal((b, s, h, d)), jnp.float32)
                * sc for sc in (0.3, 0.3, 1.0))
@@ -117,6 +121,20 @@ def test_flash_attention_bf16_matches_pallas():
     o, _ = ops.flash_attention(*(to_tensor(np.asarray(x)) for x in (q, k, v)),
                                True)
     assert o.dtype == torch.bfloat16
+    np.testing.assert_allclose(to_numpy(o), np.asarray(o_j, np.float32),
+                               rtol=0.05, atol=0.05)
+
+
+def test_flash_attention_bf16_d80_matches_pallas():
+    """bf16 at vit-h-14's head_dim 80, which the card runs on the wgmma
+    kernel zero-filled to its 128-wide instance."""
+    b, s, h, d = 1, 64, 2, 80
+    q, k, v = (jnp.asarray(RNG.standard_normal((b, s, h, d)), jnp.bfloat16)
+               * sc for sc in (0.3, 0.3, 1.0))
+    o_j = jops.flash_attention(q, k, v, causal=True, block_q=32, block_k=32)
+    o, _ = ops.flash_attention(*(to_tensor(np.asarray(x)) for x in (q, k, v)),
+                               True)
+    assert o.dtype == torch.bfloat16 and route(o.dtype, d) == "wgmma"
     np.testing.assert_allclose(to_numpy(o), np.asarray(o_j, np.float32),
                                rtol=0.05, atol=0.05)
 
@@ -231,24 +249,105 @@ def test_optimizer_functions_match_jax():
         assert tlr(step) == pytest.approx(float(jlr(step)), rel=1e-6)
 
 
-@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+# every padded width and its neighbours, the wgmma edges (multiples of 8
+# up to 128) and vit-h-14's 80
+ROUTE_HEAD_DIMS = [8, 16, 32, 64, 128, 1, 2, 3, 7, 9, 15, 17, 20, 24, 31,
+                   33, 48, 63, 65, 72, 80, 96, 100, 112, 120, 127, 129, 136,
+                   160, 192, 200, 255, 256]
+
+
+@pytest.mark.parametrize("d", ROUTE_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_route_picks_the_kernel_by_dtype_and_head_dim(dtype, d):
-    """bf16 at head_dim 64 or 128 takes the tensor-core kernel; f32 and
-    the narrower bf16 heads the SIMT kernel; f32 at 128 has no kernel."""
-    if dtype == torch.float32 and d == 128:
-        with pytest.raises(ValueError):
-            route(dtype, d)
-        return
-    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
-    assert route(dtype, d) == want
+    """The route table: bf16 at a multiple of 8 from 8 to 128 takes the
+    wgmma kernel; f32 at any d from 1 to 256, and bf16 at every other d up
+    to 256, the mma.sync kernel."""
+    wgmma = dtype == torch.bfloat16 and d % 8 == 0 and 8 <= d <= 128
+    assert route(dtype, d) == ("wgmma" if wgmma else "mma")
 
 
 def test_flash_route_rejects_other_dtypes_and_head_dims():
-    for dtype, d in ((torch.float16, 64), (torch.bfloat16, 96),
-                     (torch.float32, 256)):
-        with pytest.raises(ValueError):
+    for dtype, d in ((torch.float16, 64), (torch.bfloat16, 0),
+                     (torch.float32, 0), (torch.bfloat16, 257),
+                     (torch.float32, 257)):
+        with pytest.raises(ValueError, match="1 <= head_dim <= 256"):
             route(dtype, d)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 stored mantissa bits): to nearest, ties away
+    from zero, by the low 13 bits, as ``cvt.rna.tf32.f32`` rounds."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, passes):
+    """a @ b on TF32 tensor cores with f32 accumulation: one pass (both
+    operands rounded to TF32) or three (``csrc/flash_attention.cu``'s split,
+    x = hi + lo, lo*hi + hi*lo + hi*hi)."""
+    ahi, bhi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ahi @ bhi
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    return alo @ bhi + ahi @ blo + ahi @ bhi
+
+
+def _emulate_mma_flash(q, k, v, passes):
+    """The mma.sync flash kernel's arithmetic on the CPU in f32, causal:
+    TF32 products, an online softmax over its kv tiles (64 rows, 32 at
+    d > 64) with exp2, the scale folded into the scores and a running max.
+    Returns (o, lse) as the kernel lays them out."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    bk = 64 if d <= 64 else 32
+    scale_log2 = 1.0 / math.sqrt(d) * math.log2(math.e)
+    qh = q.transpose(1, 2)                                  # (b, h, s, d)
+    kh = ref.expand_kv(k, h).transpose(1, 2)
+    vh = ref.expand_kv(v, h).transpose(1, 2)
+    mask = ref.causal_mask(sq, skv, q.device)
+    m = torch.full((b, h, sq), -math.inf)
+    l = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, d))
+    for k0 in range(0, skv, bk):
+        s = _tf32_product(qh, kh[:, :, k0:k0 + bk].transpose(-1, -2), passes)
+        s = s.masked_fill(~mask[:, k0:k0 + bk], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s * scale_log2 - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _tf32_product(
+            p, vh[:, :, k0:k0 + bk], passes)
+        m = m_new
+    return ((acc / l[..., None]).transpose(1, 2),
+            m * math.log(2.0) + torch.log(l))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_3xtf32_emulation_holds_the_f32_limit(d, record_property):
+    """The precision case for the mma.sync kernel's design, on the CPU:
+    three TF32 passes land within the card's f32 limit (o within 2e-5, lse
+    within 1e-4, chip_smoke.FLASH_TOL) of the Pallas kernel; one TF32 pass
+    is recorded (``one_pass_over_limit``), not asserted."""
+    b, s, h, kv = 1, 256, 4, 2
+    rng = np.random.default_rng(d)          # the recorded numbers repeat
+    q, k, v = (jnp.asarray(rng.standard_normal(shape), jnp.float32) * sc
+               for shape, sc in (((b, s, h, d), 0.3), ((b, s, kv, d), 0.3),
+                                 ((b, s, kv, d), 1.0)))
+    ke, ve = jnp.repeat(k, h // kv, axis=2), jnp.repeat(v, h // kv, axis=2)
+    o_j = np.asarray(jops.flash_attention(q, ke, ve, causal=True,
+                                          block_q=64, block_k=64))
+    _, lse_j = _flash_fwd_core(q, ke, ve, True, 0)
+    tq, tk, tv = (to_tensor(np.asarray(x)) for x in (q, k, v))
+    o3, lse3 = _emulate_mma_flash(tq, tk, tv, passes=3)
+    np.testing.assert_allclose(to_numpy(o3), o_j, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(to_numpy(lse3), np.asarray(lse_j), rtol=0,
+                               atol=1e-4)
+    o1, _ = _emulate_mma_flash(tq, tk, tv, passes=1)
+    over = {name: float(np.abs(to_numpy(o) - o_j).max() / 2e-5)
+            for name, o in (("three", o3), ("one", o1))}
+    record_property("three_passes_over_limit", over["three"])
+    record_property("one_pass_over_limit", over["one"])
+    print(f"d={d}: worst |o - Pallas| over the 2e-5 limit: three TF32 passes "
+          f"{over['three']:.4f}, one pass {over['one']:.2f}")
 
 
 def test_flash_attention_bf16_d128_on_cpu_is_the_plain_version():
