@@ -71,11 +71,27 @@ Phases, in order; any failed check raises and the script exits nonzero:
              stall per checkpoint, flush and locked-snapshot ms, bytes per
              epoch, tier lag, disk peak and write rate, restore ms, and
              device and host peaks.
+7. harness — the chaos harness (``repro_torch.harness``) on the card:
+             all 42 channel-level golden scenarios pass every invariant,
+             each AdamW one on an uncompressed channel ending with the
+             trainer's and the shadow's checkpoints bitwise those of its
+             CPU run (plain versions), each elastic drill booking
+             elastic-reshard; the four full-level scenarios the port runs
+             at tinyllama-1.1b full width, 2 layers, batch 8 x seq 2048,
+             bf16, the config's 4 microbatches: every invariant passes,
+             the wgmma flash kernel 2 x layers x microbatches times per
+             executed step of the reference and checkpointed runs, the
+             mma.sync one never, pack and AdamW launched; and
+             elastic-fsdp-flip raises NotImplementedError (the port has
+             no sharding rules yet). Each scenario's wall seconds stand
+             beside the JAX package's CPU baseline
+             (benchmarks/golden_budget.json), a yardstick only.
 
 Output: a ``main_path`` JSON line, ``flash_d128``, ``flash_f32_d128``,
-``flash_bf16_d80`` and ``pack_host`` timing lines, a ``kernels`` JSON line, a ``checkpointers`` JSON line, a
-``durability`` JSON line, the card's name and power limit, and as the last
-line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+``flash_bf16_d80`` and ``pack_host`` timing lines, a ``kernels`` JSON line,
+a ``checkpointers`` JSON line, a ``durability`` JSON line, a ``harness``
+JSON line, the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits nonzero.
 """
 from __future__ import annotations
@@ -1560,6 +1576,162 @@ def phase_durability(cfg, step_ms_ref: float) -> dict:
             "runs": [raw, packed, *others], "planner": plan}
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+# Phase 7's full-level scenarios: tinyllama-1.1b at full width cut to
+# HARNESS_LAYERS layers (as phase 3), bf16 compute, the config's
+# microbatches, each scenario's batch and seq replaced by HARNESS_SHAPE.
+HARNESS_LAYERS = 2
+HARNESS_SHAPE = dict(batch=8, seq=2048)
+# the one golden scenario the port refuses (it needs sharding rules)
+HARNESS_REFUSED = "elastic-fsdp-flip"
+
+
+def _budget() -> dict:
+    """The JAX package's committed per-scenario CPU seconds, a yardstick
+    printed beside the card's wall seconds (not a measurement of it)."""
+    with open(os.path.join(ROOT, "benchmarks", "golden_budget.json")) as f:
+        return json.load(f)["scenarios"]
+
+
+def _same_ckpt(a: dict, b: dict) -> bool:
+    """Two host checkpoints bitwise equal (step, leaf names, every bit)."""
+    return a["step"] == b["step"] and all(
+        set(a[t]) == set(b[t]) and all(torch.equal(a[t][k], b[t][k])
+                                       for k in a[t])
+        for t in ("params", "mu", "nu"))
+
+
+def harness_channel(budget: dict) -> list[dict]:
+    """Every channel-level golden scenario on the card: every invariant
+    passes; an AdamW scenario on an uncompressed channel ends with the
+    trainer's and the shadow's checkpoints bitwise those of its CPU run
+    (plain versions); every elastic drill books elastic-reshard."""
+    from repro_torch.harness import GOLDEN, run_scenario
+    from repro_torch.kernels import ops
+    rows = []
+    for name, sc in GOLDEN.items():
+        if sc.level != "channel":
+            continue
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_scenario(sc, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        check(res.passed, f"harness: {name} on the card violates "
+                          f"{[v.to_dict() for v in res.violations[:3]]}")
+        stages = res.trace.checkpointer.stall_stages
+        if name.startswith("elastic-"):
+            check("elastic-reshard" in stages,
+                  f"harness: {name} booked no elastic-reshard ({stages})")
+        bitwise = None
+        if sc.optimizer == "adamw" and sc.channel.kind != "compressed":
+            check(launches["fused_adamw"] > 0,
+                  f"harness: {name} never launched fused_adamw")
+            cpu = run_scenario(sc, device="cpu")
+            check(cpu.passed, f"harness: {name} on the CPU violates "
+                              f"{[v.to_dict() for v in cpu.violations[:3]]}")
+            bitwise = (_same_ckpt(res.trace.final, cpu.trace.final)
+                       and _same_ckpt(res.trace.final_shadow,
+                                      cpu.trace.final_shadow))
+            check(bitwise, f"harness: {name}'s checkpoints on the card "
+                           f"differ from its CPU run")
+        rows.append({"name": name, "s": wall,
+                     "jax_cpu_baseline_s": budget.get(name),
+                     "launches": launches, "bitwise_vs_cpu": bitwise,
+                     "elastic_events": len(res.trace.elastic_events)})
+    check(len(rows) == 42, f"harness: {len(rows)} channel-level scenarios")
+    check(sum(r["launches"]["fused_adamw"] for r in rows) > 0,
+          "harness: fused_adamw never launched at channel level")
+    print(f"harness: {len(rows)} channel-level scenarios pass on the card, "
+          f"{sum(r['bitwise_vs_cpu'] is True for r in rows)} AdamW ones "
+          f"bitwise their CPU runs, in {sum(r['s'] for r in rows):.1f} s",
+          flush=True)
+    return rows
+
+
+def harness_full(budget: dict) -> list[dict]:
+    """The full-level golden scenarios the port runs, at full width and
+    HARNESS_LAYERS layers on the card: every invariant passes; the wgmma
+    flash kernel launches 2 x layers x microbatches per executed step of
+    the reference and the checkpointed runs together, the mma.sync one
+    never; the pack (for Checkmate) and AdamW kernels launch. The one
+    refused scenario must raise NotImplementedError."""
+    from repro_torch import configs
+    from repro_torch.harness import GOLDEN, run_scenario
+    from repro_torch.kernels import ops
+    cfg = dataclasses.replace(configs.get("tinyllama-1.1b"),
+                              num_layers=HARNESS_LAYERS)
+    rows = []
+    for name, sc in GOLDEN.items():
+        if sc.level != "full" or name == HARNESS_REFUSED:
+            continue
+        sc = dataclasses.replace(sc, **HARNESS_SHAPE)
+        _free()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_scenario(sc, device="cuda", cfg=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        check(res.passed, f"harness: {name} at full width violates "
+                          f"{[v.to_dict() for v in res.violations[:3]]}")
+        st = res.trace.stats
+        ran = len(res.trace.ref_losses) + st.steps
+        want = 2 * cfg.num_layers * cfg.microbatches * ran
+        check(launches["flash_attention_wgmma"] == want,
+              f"harness: {name}: wgmma flash launched "
+              f"{launches['flash_attention_wgmma']} times, not {want}")
+        check(launches["flash_attention_mma"] == 0,
+              f"harness: {name}: mma.sync flash launched "
+              f"{launches['flash_attention_mma']} times on the bf16 path")
+        check(launches["fused_adamw"] > 0,
+              f"harness: {name} never launched fused_adamw")
+        if sc.checkpointer == "checkmate":
+            check(launches["bucket_pack"] > 0,
+                  f"harness: {name} never launched bucket_pack")
+        rows.append({
+            "name": name, "s": wall, "jax_cpu_baseline_s": budget.get(name),
+            "batch": sc.batch, "seq": sc.seq, "layers": cfg.num_layers,
+            "microbatches": cfg.microbatches, "steps_run": st.steps,
+            "reference_steps": len(res.trace.ref_losses),
+            "recoveries": st.recoveries, "recovered_at": st.recovered_at,
+            "step_ms": st.steady_iter * 1e3, "losses": st.losses,
+            "launches": launches})
+        print(f"harness: {name} at full width, {cfg.num_layers} layers, "
+              f"batch {sc.batch} x seq {sc.seq}: pass in {wall:.1f} s, "
+              f"{st.steps} steps + {len(res.trace.ref_losses)} reference, "
+              f"step {st.steady_iter * 1e3:.2f} ms, launches {launches}",
+              flush=True)
+        del res
+    try:
+        run_scenario(dataclasses.replace(GOLDEN[HARNESS_REFUSED],
+                                         **HARNESS_SHAPE),
+                     device="cuda", cfg=cfg)
+        fail(f"harness: {HARNESS_REFUSED} ran; the port has no sharding "
+             f"rules to restore onto")
+    except NotImplementedError as e:
+        check("item 11" in str(e), f"harness: {HARNESS_REFUSED}: {e}")
+    check(len(rows) == 4, f"harness: {len(rows)} full-level scenarios")
+    _free()
+    return rows
+
+
+def phase_harness() -> dict:
+    budget = _budget()
+    t0 = time.perf_counter()
+    channel = harness_channel(budget)
+    t1 = time.perf_counter()
+    full = harness_full(budget)
+    t2 = time.perf_counter()
+    return {"channel_s": t1 - t0, "full_s": t2 - t1,
+            "baseline_note": "jax_cpu_baseline_s: the JAX package's "
+                             "seconds on a CPU (benchmarks/golden_budget."
+                             "json), a yardstick, not a card time",
+            "channel": channel, "full": full, "refused": HARNESS_REFUSED}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -1595,6 +1767,8 @@ def main():
     lap("checkpointers")
     durability = phase_durability(cfg, main_out["step_ms"])
     lap("durability")
+    harness = phase_harness()
+    lap("harness")
     print(f"timing: seconds by phase {secs}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1611,6 +1785,7 @@ def main():
                                   for r in rows]}))
     print(json.dumps({"checkpointers": ckpts}))
     print(json.dumps({"durability": durability}))
+    print(json.dumps({"harness": harness}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

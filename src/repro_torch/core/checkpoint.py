@@ -396,6 +396,41 @@ class CheckmateCheckpointer(BaseCheckpointer):
         self._parts = parts
         return sum(parts.values())
 
+    def reconfigure(self, shadow: ShadowCluster,
+                    channel: Optional[GradientChannel] = None) -> float:
+        """Swap in a re-laid-out shadow plane after an elastic restore.
+
+        ``shadow`` is the rebuilt cluster (`repro_torch.core.elastic.
+        rebuild_shadow`: already seeded from the consolidated checkpoint,
+        durability migrated). The old channel is closed and the new one
+        (or the old instance, re-opened: `PacketizedChannel.open`
+        re-derives owners, topology and wire geometry from the layout) is
+        opened against the new layout, so channel routing and shadow
+        ownership come from one derivation. Any desync is cleared: the
+        stream restarts from the re-seeded replica. The wall time is
+        booked on the stall ledger as the ``elastic-reshard`` stage and
+        returned.
+        """
+        ob = _obs.get()
+        t0 = time.perf_counter()
+        with ob.tracer.span("checkpoint.elastic-reshard", track="checkpoint",
+                            args={"n_nodes": shadow.n_nodes}):
+            self.channel.close()
+            if channel is not None:
+                self.channel = channel
+            self.channel.open(shadow.layout)
+            self.shadow = shadow
+            if shadow.durability is not None:
+                self.durability = shadow.durability
+            revive = getattr(self.channel, "revive_all", None)
+            if revive is not None:
+                revive()
+            self._desynced = False
+            self._dead_desynced = False
+        dt = time.perf_counter() - t0
+        self._book("elastic-reshard", dt)
+        return dt
+
     def restore(self) -> Optional[dict]:
         ob = _obs.get()
         t0 = time.perf_counter()
@@ -404,6 +439,7 @@ class CheckmateCheckpointer(BaseCheckpointer):
         # recovery stalls training while the shadows drain
         self._book("consolidate-wait", time.perf_counter() - t0)
         self._desynced = False           # training rewinds to this state
+        self._dead_desynced = False
         return out
 
     def finalize(self):

@@ -3,24 +3,29 @@ of ``python -m repro.obs``.
 
 Subcommands:
 
-* ``trace``   — run a reduced training config under a fully-enabled
-  observability session and write the Chrome/Perfetto trace_event JSON
-  (plus, optionally, the metrics snapshot).
-* ``summary`` — same run, but print the one-screen metrics digest and the
-  stall-attribution report instead of a trace file.
+* ``trace``   — run a harness scenario (golden name or sampled seed) or a
+  reduced training config under a fully-enabled observability session and
+  write the Chrome/Perfetto trace_event JSON (plus, optionally, the
+  metrics snapshot).
+* ``summary`` — same run selection, but print the one-screen metrics
+  digest and the stall-attribution report instead of a trace file.
 * ``diff``    — compare two metrics snapshot JSONs metric by metric.
 
 Examples::
 
+    PYTHONPATH=src python -m repro_torch.obs trace \
+        --scenario packetized-rail-clean --device cpu
+    PYTHONPATH=src python -m repro_torch.obs trace --seed 7 --device cpu \
+        --out seed7.trace.json
     PYTHONPATH=src python -m repro_torch.obs summary --train tinyllama-1.1b \
         --steps 5 --device cpu --channel packetized
     PYTHONPATH=src python -m repro_torch.obs trace --train tinyllama-1.1b \
         --manual-clock --out run.trace.json
     PYTHONPATH=src python -m repro_torch.obs diff before.json after.json
 
-``--scenario`` and ``--seed`` (the JAX CLI's harness runs) exit with a
-message: the scenario harness is not ported yet. ``--manual-clock`` swaps
-the host wall clock for a deterministic logical clock.
+Every run is on the card unless ``--device cpu`` is given.
+``--manual-clock`` swaps the host wall clock for a deterministic logical
+clock, so a fixed scenario exports a byte-identical trace every run.
 """
 from __future__ import annotations
 
@@ -35,11 +40,16 @@ from repro_torch.obs.stalls import format_stall_report
 
 def _add_run_args(ap: argparse.ArgumentParser):
     sel = ap.add_mutually_exclusive_group(required=True)
-    sel.add_argument("--scenario", help="(harness: not ported yet)")
-    sel.add_argument("--seed", type=int, help="(harness: not ported yet)")
+    sel.add_argument("--scenario",
+                     help="golden scenario name (repro_torch.harness.GOLDEN)")
+    sel.add_argument("--seed", type=int,
+                     help="sample a random scenario from one integer")
     sel.add_argument("--train", metavar="ARCH",
                      help="run a reduced training config "
                           "(repro_torch.configs)")
+    ap.add_argument("--level", default="channel",
+                    choices=["channel", "full"],
+                    help="stack depth for --seed sampling")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=16)
@@ -50,6 +60,22 @@ def _add_run_args(ap: argparse.ArgumentParser):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--manual-clock", action="store_true",
                     help="deterministic logical host clock (golden traces)")
+
+
+def _run_scenario(args, ob):
+    from repro_torch.harness import GOLDEN, run_scenario, sample_scenario
+
+    if args.scenario is not None:
+        if args.scenario not in GOLDEN:
+            sys.exit(f"unknown scenario {args.scenario!r}; golden names:\n  "
+                     + "\n  ".join(sorted(GOLDEN)))
+        sc = GOLDEN[args.scenario]
+    else:
+        sc = sample_scenario(args.seed, level=args.level)
+    result = run_scenario(sc, device=args.device)
+    ck = result.trace.checkpointer
+    collect_run(ob.metrics, checkpointer=ck, channel=result.trace.channel)
+    return sc.name, ck, result
 
 
 def _run_train(args, ob):
@@ -79,20 +105,19 @@ def _run_train(args, ob):
           lr_fn=lambda _: 1e-3, checkpointer=ck, seed=0, state=s0,
           device=device)
     collect_run(ob.metrics, checkpointer=ck)
-    return f"train-{cfg.name}", ck
+    return f"train-{cfg.name}", ck, None
 
 
 def _run(args, ob):
-    if args.train is None:
-        sys.exit("the scenario harness (--scenario, --seed) is not ported "
-                 "yet; run a training config with --train ARCH")
-    return _run_train(args, ob)
+    if args.train is not None:
+        return _run_train(args, ob)
+    return _run_scenario(args, ob)
 
 
 def cmd_trace(args) -> int:
     clock = obs.ManualClock(0.0) if args.manual_clock else None
     with obs.enabled_session(clock=clock) as ob:
-        name, ck = _run(args, ob)
+        name, ck, _ = _run(args, ob)
         out = args.out or f"{name}.trace.json"
         ob.tracer.write(out)
         n = len(ob.tracer.events())
@@ -107,11 +132,14 @@ def cmd_trace(args) -> int:
 def cmd_summary(args) -> int:
     clock = obs.ManualClock(0.0) if args.manual_clock else None
     with obs.enabled_session(clock=clock) as ob:
-        name, ck = _run(args, ob)
+        name, ck, result = _run(args, ob)
         snap = ob.metrics.snapshot()
     print(f"== {name} ==")
+    if result is not None:
+        print(result.describe())
     print(render_digest(snap))
-    print(format_stall_report(ck))
+    if ck is not None:
+        print(format_stall_report(ck))
     return 0
 
 

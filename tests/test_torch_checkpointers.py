@@ -8,6 +8,7 @@ bit. The orderings of tests/test_checkpoint_baselines.py are timing bounds
 and keep that file's factors.
 """
 import io
+import statistics
 import time
 
 import numpy as np
@@ -123,6 +124,9 @@ def _big(nbytes=8 << 20):
     return _torch_state(_np_state(n=nbytes // 4))
 
 
+ROUNDS = 5          # measured rounds of test_sync_stalls_most
+
+
 def _train_like(ck, state, steps=6, step_s=0.05):
     """Drive ``ck`` with a step of ``step_s`` seconds between checkpoints,
     the time a background persist is meant to overlap."""
@@ -136,15 +140,28 @@ def _train_like(ck, state, steps=6, step_s=0.05):
 
 
 def test_sync_stalls_most():
+    """Each total is a sum of six wall-clock stalls of tens of ms, and a
+    test worker beside this one can stretch any of them, so each
+    checkpointer is measured over ROUNDS rounds, their order rotated (none
+    always runs first, on cold pages), after one discarded warm-up round;
+    the medians keep the reference's factors and ordering."""
     state = _big()
-    sync = _train_like(tck.SyncCheckpointer(freq=1), state)
-    async_ = _train_like(tck.AsyncCheckpointer(freq=1), state)
-    sharded = _train_like(tck.ShardedAsyncCheckpointer(freq=1, n_shards=8),
-                          state)
-    assert sync.n_checkpoints == 6
-    assert sync.stall_total >= async_.stall_total * 0.8
-    assert async_.stall_total >= sharded.stall_total * 0.5
-    assert sync.restore()["step"] == 6
+    makers = {"sync": lambda: tck.SyncCheckpointer(freq=1),
+              "async": lambda: tck.AsyncCheckpointer(freq=1),
+              "sharded": lambda: tck.ShardedAsyncCheckpointer(freq=1,
+                                                              n_shards=8)}
+    names = list(makers)
+    totals = {n: [] for n in names}
+    for r in range(ROUNDS + 1):
+        for name in names[r % 3:] + names[:r % 3]:
+            ck = _train_like(makers[name](), state)
+            assert ck.n_checkpoints == 6
+            assert ck.restore()["step"] == 6
+            if r:                                   # round 0 warms up
+                totals[name].append(ck.stall_total)
+    sync, async_, sharded = (statistics.median(totals[n]) for n in names)
+    assert sync >= async_ * 0.8, totals
+    assert async_ >= sharded * 0.5, totals
 
 
 def test_frequency_trades_stall():

@@ -218,8 +218,44 @@ def test_cli_summary_and_trace_of_a_train_run(tmp_path, capsys):
                       "--out", str(trace)]) == 0
     names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]}
     assert {"step.compute", "channel.send", "shadow.apply"} <= names
-    with pytest.raises(SystemExit, match="not ported"):
-        tcli.main(["summary", "--scenario", "inprocess-clean"])
+    # a scenario name the corpus lacks exits as the JAX CLI does
+    with pytest.raises(SystemExit, match="unknown scenario"):
+        tcli.main(["summary", "--scenario", "no-such-scenario",
+                   "--device", "cpu"])
+
+
+def test_cli_trace_of_a_golden_scenario_is_byte_identical(tmp_path):
+    """``trace --scenario <golden> --manual-clock``: the same bytes every
+    run, with send -> fabric -> shadow-apply spans for every step (the JAX
+    CLI's acceptance check)."""
+    outs = []
+    for i in range(2):
+        out = tmp_path / f"t{i}.json"
+        assert tcli.main(["trace", "--scenario", "packetized-rail-clean",
+                          "--device", "cpu", "--manual-clock",
+                          "--out", str(out),
+                          "--metrics-out", str(tmp_path / "m.json")]) == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1]
+    evs = [e for e in json.loads(outs[0])["traceEvents"] if e["ph"] == "X"]
+
+    def steps_of(prefix):
+        return {e.get("args", {}).get("step") for e in evs
+                if e["name"].startswith(prefix)}
+    steps = set(range(1, 6))
+    assert steps <= steps_of("channel.send")
+    assert steps <= steps_of("allgather step")
+    assert steps <= steps_of("shadow.apply")
+    snap = json.loads((tmp_path / "m.json").read_text())
+    assert snap["metrics"]["checkpoints_total"]["samples"][0]["value"] == 5
+
+
+def test_cli_summary_of_a_sampled_seed(capsys):
+    assert tcli.main(["summary", "--seed", "7", "--level", "channel",
+                      "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "== sampled-7 ==" in out and out.count("PASS") == 1
+    assert "stall attribution" in out
 
 
 # -- the fabric's counters and spans ----------------------------------------

@@ -131,6 +131,10 @@ def _imports(path: Path) -> set[str]:
 def test_port_imports_neither_jax_nor_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    # the walk reaches the harness and elastic modules too
+    assert {PORT / "harness" / f"{m}.py" for m in (
+        "scenario", "corpus", "invariants", "runner", "__main__")} | {
+        PORT / "core" / "elastic.py"} <= set(files)
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
@@ -144,8 +148,11 @@ def test_port_runs_with_jax_and_repro_unimportable():
         "sys.modules['repro'] = None\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
         "import pkgutil, importlib, repro_torch, chip_smoke\n"
-        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "assert 'repro_torch.harness.runner' in names, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "from repro_torch import configs\n"
         "from repro_torch.core.channel import InProcessChannel\n"
         "from repro_torch.train.loop import train\n"
@@ -172,6 +179,21 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         state_from_numpy({}, {}, {}, 0)
     state = make_train_state(cfg, device="cpu")
     assert all(t.device.type == "cpu" for t in state.params.values())
+    from repro_torch.core.buckets import layout_for_tree
+    from repro_torch.core.elastic import rebuild_shadow
+    from repro_torch.core.recovery import checkpoint_from_state
+    from repro_torch.core.shadow import ShadowCluster
+    from repro_torch.harness import GOLDEN, run_scenario
+    for name in ("inprocess-clean", "full-inprocess-recovery"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_scenario(GOLDEN[name])
+    old = ShadowCluster(layout_for_tree(state.params), OptimizerConfig(),
+                        device="cpu")
+    old.bootstrap(state.params, state.mu, state.nu, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rebuild_shadow(old, checkpoint_from_state(state))
+    assert rebuild_shadow(old, checkpoint_from_state(state),
+                          device="cpu").consolidate()["step"] == 0
 
 
 def test_kernel_wrappers_refuse_other_devices():
