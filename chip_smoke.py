@@ -9,7 +9,12 @@ Phases, in order; any failed check raises and the script exits nonzero:
 2. kernels — hold each kernel against its plain PyTorch version on the card
              (AdamW and pack bitwise, both flash kernels to a tolerance, at
              head dims from 8 to 256 in bf16 and f32, each case on the
-             kernel ``route`` names), on test shapes and again on every
+             kernel ``route`` names, at every shape phase 8 launches
+             (derived from its cells: whisper's 448 x 1500
+             cross-attention, its encoder and decoder, the non-causal ViT,
+             GQA 7:1 and 48:1, zamba2's shared block, llava), at dbrx's
+             and gpt2-1.5b's shapes, and at sq > skv and at f32 sq != skv),
+             on test shapes and again on every
              leaf and bucket of the main path, and time kernel, plain
              version, bound and one library call (the library call is a
              yardstick only; the port never makes it).
@@ -33,7 +38,8 @@ Phases, in order; any failed check raises and the script exits nonzero:
              packetized --topology rail-optimized`` (the gradients cross
              the simulated multicast fabric; these two at 6 layers,
              ``--layers 6``); sync; async; torch_dcp;
-             gemini; checkfreq. Every run but none fails at step 4. Each
+             gemini; checkfreq (the last four also at ``--layers 6``). Every
+             run but none fails at step 4. Each
              stall ledger must sum bit for bit, none must book no stall,
              each Checkmate run must lose no step at the failure, each
              copy-persist restore() must be its last checkpoint, bitwise
@@ -86,16 +92,41 @@ Phases, in order; any failed check raises and the script exits nonzero:
              no sharding rules yet). Each scenario's wall seconds stand
              beside the JAX package's CPU baseline
              (benchmarks/golden_budget.json), a yardstick only.
+8. families — every model family's training path at full width, cut in
+             depth (and arctic's experts 128 -> 8) only as far as 80 GB
+             with a shadow forces: granite-34b (2 layers; gelu2, GQA
+             48:1), arctic-480b (1 layer, 8 experts; MoE), mamba2-2.7b (2
+             layers, SSD at its published chunk 256), zamba2-1.2b (12
+             layers: two calls of the shared block), whisper-medium (full
+             depth, 1500 frames, 448 text tokens), llava-next-mistral-7b
+             (2 layers, 576 patches + 1472 tokens) and vit-h-14 as a ViT
+             (full depth, 256 patches). Each first holds its .reduced()
+             config at f32, 3 steps on the card against 3 on the CPU, to
+             rtol 1e-4, and one forward at its run's widths, 2 layers (the
+             hybrid: one segment, so one shared-block call; whisper 2 + 2),
+             batch 1, at most 512 tokens, f32, on the card against the CPU,
+             to rtol 1e-4; then train() with an in-process channel into a
+             2-node async shadow, batch 4 in 2 microbatches, 3 steps, a
+             failure at step 2: finite losses, no step lost, the
+             consolidated checkpoint bitwise the trainer's, the wgmma flash
+             kernel 2 x attention calls x microbatches times per executed
+             step (0 for mamba2), each call at a shape attention_shapes()
+             predicts and phase 2 checked, the mma.sync one never, AdamW
+             and pack
+             launched. Each prints its step ms, peak device memory and
+             host RSS.
 
 Output: a ``main_path`` JSON line, ``flash_d128``, ``flash_f32_d128``,
 ``flash_bf16_d80`` and ``pack_host`` timing lines, a ``kernels`` JSON line,
 a ``checkpointers`` JSON line, a ``durability`` JSON line, a ``harness``
-JSON line, the card's name and power limit, and as the last line
+JSON line, a ``families`` JSON line, the card's name and power limit, and
+as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits nonzero.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -136,6 +167,13 @@ MEDIAN_SPANS = ("checkpoint.on_step", "channel.quantize", "channel.send",
 PACKETIZED_LAYERS = 6
 PACKETIZED = ("--channel", "packetized", "--topology", "rail-optimized",
               "--layers", str(PACKETIZED_LAYERS))
+# sync, the first copy-persist row, runs at full depth, so the pageable
+# persist path keeps a full-size run; the other four run at
+# COPY_PERSIST_LAYERS layers (full width): each of their checkpoints copies
+# the whole state through pageable host memory (40-75 s a run at full
+# depth), and phase 8 needs the time
+COPY_PERSIST_LAYERS = 6
+COPY_PERSIST = ("--layers", str(COPY_PERSIST_LAYERS))
 CKPT_RUNS = (
     ("none", ()),
     ("checkmate", ("--shadow-async", "--max-lag-steps", "2")),
@@ -143,8 +181,9 @@ CKPT_RUNS = (
     ("checkmate", ("--shadow-async", "--max-lag-steps", "2", *PACKETIZED)),
     ("checkmate", ("--shadow-async", "--max-lag-steps", "2", *PACKETIZED,
                    "--compress")),
-    ("sync", ()), ("async", ()), ("torch_dcp", ()), ("gemini", ()),
-    ("checkfreq", ()))
+    ("sync", ()),
+    *((name, COPY_PERSIST)
+      for name in ("async", "torch_dcp", "gemini", "checkfreq")))
 
 
 def fail(msg: str):
@@ -289,6 +328,18 @@ FLASH_BF16_DIMS = (8, 16, 24, 48, 72, 80, 96, 112, 128, 20, 100, 160, 256, 7)
 FLASH_F32_DIMS = (8, 16, 20, 32, 64, 80, 96, 128, 160, 256, 3, 33)
 
 
+# Flash shapes beside phase 8's own (which family_flash_cases() derives
+# from FAMILY_CELLS): (b, sq, skv, h, kv, d, dtype, causal). whisper's
+# cross-attention in f32, and its transpose (sq > skv) in both dtypes.
+FLASH_EXTRA_CASES = (
+    (2, 448, 1500, 16, 16, 64, torch.float32, False),
+    (2, 1500, 448, 16, 16, 64, torch.bfloat16, False),
+    (2, 1500, 448, 16, 16, 64, torch.float32, False))
+# configs not run in phase 8 whose attention shapes phase 2 holds:
+# (arch, token seq): dbrx's GQA 6:1 and gpt2-1.5b's 25 heads
+FLASH_CONFIG_CASES = (("dbrx-132b", 2048), ("gpt2-1.5b", 2048))
+
+
 def check_flash(dev) -> dict:
     """Both flash kernels against the plain version; returns the worst
     error in ``o`` of each kernel and input dtype, keyed "name:dtype"."""
@@ -299,7 +350,7 @@ def check_flash(dev) -> dict:
     def rnd(shape, dt, s=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * s).to(dt)
 
-    cases = []   # (b, s, h, kv, d, dtype, causal)
+    cases = []   # (b, s, h, kv, d, dtype, causal), sq == skv
     for b, s, h, d in ((2, 128, 2, 16), (1, 256, 4, 32), (2, 64, 2, 8),
                        (1, 64, 1, 64)):
         for causal in (True, False):
@@ -320,12 +371,16 @@ def check_flash(dev) -> dict:
     cases += [(2, 2048, 32, 4, 64, torch.bfloat16, True),   # main path
               FLASH_D128, FLASH_F32_D128, FLASH_BF16_D80,
               (2, 2048, 32, 4, 64, torch.float32, True)]    # phase 3's
+    cases = [(b, s, s, h, kv, d, dt, causal)
+             for b, s, h, kv, d, dt, causal in cases]
+    family = family_flash_cases()
+    cases += family
     worst, ratios = {}, {}
     for case in cases:
-        b, s, h, kv, d, dt, causal = case
+        b, s, skv, h, kv, d, dt, causal = case
         rtol, atol = FLASH_TOL[dt]
-        q, k, v = rnd((b, s, h, d), dt, 0.3), rnd((b, s, kv, d), dt, 0.3), \
-            rnd((b, s, kv, d), dt)
+        q, k, v = rnd((b, s, h, d), dt, 0.3), \
+            rnd((b, skv, kv, d), dt, 0.3), rnd((b, skv, kv, d), dt)
         name = f"flash_attention_{route(dt, d)}"
         before = ops.launch_counts()
         o, lse = ops.flash_attention(q, k, v, causal)
@@ -350,9 +405,10 @@ def check_flash(dev) -> dict:
             print(f"kernels: flash {case} ({name}): max err {err}, "
                   f"{ratio:.3f} of the limit; rows past s/2: max err {late}, "
                   f"mean |o| {size}", flush=True)
-    print(f"kernels: flash within tolerance on {len(cases)} cases "
-          f"(o: 2e-5 f32, 1e-2*|ref| + 1e-4 bf16; lse 1e-4); worst share of "
-          f"the limit {ratios}", flush=True)
+    print(f"kernels: flash within tolerance on {len(cases)} cases, "
+          f"{len(family)} of them the families' shapes (sq != skv among "
+          f"them) (o: 2e-5 f32, 1e-2*|ref| + 1e-4 bf16; lse 1e-4); "
+          f"worst share of the limit {ratios}", flush=True)
     return worst
 
 
@@ -588,12 +644,23 @@ def phase_small() -> dict:
     full-width f32 run (the mma.sync flash kernel's path). Returns the
     launch counts of the full-width run."""
     from repro_torch import configs
+    cfg = configs.get("tinyllama-1.1b")
+    lg, lc = reduced_card_equals_cpu(cfg, "small")
+    print(f"small: reduced model at f32, 3 steps, card losses {lg} vs CPU "
+          f"{lc} (rtol 1e-4)", flush=True)
+    return small_full_width()
+
+
+def reduced_card_equals_cpu(cfg, what: str) -> tuple[list, list]:
+    """``cfg.reduced()`` at f32, 2 microbatches: 3 steps on the card
+    (kernels) against 3 on the CPU (plain versions) from the same weights,
+    losses to rtol 1e-4 (f32 on both; sums run in another order on the
+    card). Returns the card's and the CPU's losses."""
     from repro_torch.core.recovery import (checkpoint_from_state,
                                            state_from_checkpoint)
     from repro_torch.train.loop import train
     from repro_torch.train.step import make_train_state
-    cfg = configs.get("tinyllama-1.1b").reduced(compute_dtype="float32",
-                                                microbatches=2)
+    cfg = cfg.reduced(compute_dtype="float32", microbatches=2)
     init = checkpoint_from_state(make_train_state(cfg, seed=5, device="cpu"))
     losses = {}
     for dev in ("cpu", "cuda"):
@@ -602,13 +669,10 @@ def phase_small() -> dict:
         losses[dev] = np.array(stats.losses)
     lc, lg = losses["cpu"], losses["cuda"]
     check(lg.shape == (3,) and np.all(np.isfinite(lg)),
-          f"small: losses {lg}")
-    # f32 compute on both; sums run in another order on the card
+          f"{what}: reduced losses {lg}")
     check(np.allclose(lg, lc, rtol=1e-4, atol=0),
-          f"small: card losses {lg} vs CPU {lc} beyond rtol 1e-4")
-    print(f"small: reduced model at f32, 3 steps, card losses {lg.tolist()} "
-          f"vs CPU {lc.tolist()} (rtol 1e-4)", flush=True)
-    return small_full_width()
+          f"{what}: reduced card losses {lg} vs CPU {lc} beyond rtol 1e-4")
+    return lg.tolist(), lc.tolist()
 
 
 def small_full_width() -> dict:
@@ -1732,6 +1796,231 @@ def phase_harness() -> dict:
             "channel": channel, "full": full, "refused": HARNESS_REFUSED}
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+# Phase 8: each family's training path at full width through train() with
+# an in-process channel into a 2-node async shadow on the card. Global batch
+# FAMILY_BATCH in FAMILY_MICROBATCHES microbatches (cut from each config's
+# 8), FAMILY_STEPS steps, a failure at FAMILY_FAIL. Widths as published;
+# depth (and arctic's experts) cut only as far as 80 GB with a shadow
+# forces. label: (arch, config overrides, seq): seq is the token sequence
+# (whisper's decoder context; llava's text after its 576 patches; unused by
+# vit, which trains on its 256 patches).
+FAMILY_BATCH, FAMILY_MICROBATCHES = 4, 2
+FAMILY_STEPS, FAMILY_FAIL = 3, 2
+FAMILY_CELLS = {
+    "granite": ("granite-34b", dict(num_layers=2), 2048),
+    "arctic": ("arctic-480b", dict(num_layers=1, num_experts=8), 2048),
+    "mamba2": ("mamba2-2.7b", dict(num_layers=2), 2048),
+    "zamba2": ("zamba2-1.2b", dict(num_layers=12), 2048),
+    "whisper": ("whisper-medium", {}, 448),
+    "llava": ("llava-next-mistral-7b", dict(num_layers=2), 2048 - 576),
+    "vit": ("vit-h-14", dict(family="vit"), 256),
+}
+
+
+def family_cfg(label: str):
+    from repro_torch import configs
+    arch, over, _ = FAMILY_CELLS[label]
+    return dataclasses.replace(configs.get(arch),
+                               microbatches=FAMILY_MICROBATCHES, **over)
+
+
+def attention_shapes(cfg, seq: int) -> dict:
+    """The flash forward calls of one microbatch's forward of ``cfg``'s
+    model at token sequence ``seq``: {(b, sq, skv, h, kv, d, dtype,
+    causal): calls}, b = FAMILY_BATCH // cfg.microbatches."""
+    from repro_torch.core.buckets import TORCH_DTYPES
+    from repro_torch.models import hybrid
+    calls = collections.Counter()
+
+    def add(n, sq, skv, causal, kv=cfg.num_kv_heads):
+        calls[(FAMILY_BATCH // cfg.microbatches, sq, skv, cfg.num_heads, kv,
+               cfg.head_dim, TORCH_DTYPES[cfg.compute_dtype], causal)] += n
+    if cfg.family == "hybrid":            # the shared block's calls
+        add(hybrid.n_shared_calls(cfg), seq, seq, True)
+    elif cfg.family == "audio":          # encoder; decoder self and cross
+        enc = cfg.encoder_seq              # (cross k, v at every head)
+        add(cfg.encoder_layers, enc, enc, False)
+        add(cfg.num_layers, seq, seq, True)
+        add(cfg.num_layers, seq, enc, False, kv=cfg.num_heads)
+    elif cfg.family == "vlm":            # patches before the text
+        add(cfg.num_layers, cfg.num_patches + seq, cfg.num_patches + seq,
+            True)
+    elif cfg.family == "vit":
+        add(cfg.num_layers, cfg.num_patches, cfg.num_patches, False)
+    elif cfg.family != "ssm":
+        add(cfg.num_layers, seq, seq, True)
+    return dict(calls)
+
+
+def family_flash_cases() -> list:
+    """Every flash shape phase 8 launches (from FAMILY_CELLS, so the two
+    cannot drift apart), then FLASH_CONFIG_CASES' and FLASH_EXTRA_CASES."""
+    from repro_torch import configs
+    cells = [(family_cfg(label), FAMILY_CELLS[label][2])
+             for label in FAMILY_CELLS]
+    cells += [(dataclasses.replace(configs.get(arch),
+                                   microbatches=FAMILY_MICROBATCHES), seq)
+              for arch, seq in FLASH_CONFIG_CASES]
+    cases = [c for cfg, seq in cells for c in attention_shapes(cfg, seq)]
+    return list(dict.fromkeys(cases + list(FLASH_EXTRA_CASES)))
+
+
+# the full-width forward check of each family: FW_LAYERS layers (and
+# encoder layers), batch 1, at most FW_SEQ tokens, f32 on both sides
+FW_LAYERS, FW_SEQ = 2, 512
+
+
+def full_width_card_equals_cpu(label: str) -> dict:
+    """One forward of ``label``'s run at its widths, cut to FW_LAYERS
+    layers (the hybrid to one segment: one shared-block call), f32
+    compute, on the card (kernels) and on the CPU (plain versions) from
+    the same weights and batch: losses within rtol 1e-4."""
+    from repro_torch.data.synthetic import SyntheticStream, device_batch
+    from repro_torch.models import registry
+    cfg = family_cfg(label)
+    layers = (cfg.attn_every if cfg.family == "hybrid"
+              else min(cfg.num_layers, FW_LAYERS))
+    cfg = dataclasses.replace(
+        cfg, num_layers=layers,
+        encoder_layers=min(cfg.encoder_layers, FW_LAYERS),
+        compute_dtype="float32", microbatches=1)
+    seq = min(FAMILY_CELLS[label][2], FW_SEQ)
+    # drawn on the card: the CPU's generator takes tens of seconds for the
+    # wide embeddings
+    params = {"cuda": registry.init_params(cfg, seed=0, device="cuda")}
+    params["cpu"] = {k: v.cpu() for k, v in params["cuda"].items()}
+    batch = SyntheticStream(cfg, 1, seq, seed=0).batch_at(0)
+    out = {"layers": layers, "encoder_layers": cfg.encoder_layers,
+           "seq": seq}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[dev] = float(registry.loss_fn(params[dev], cfg,
+                                              device_batch(batch, dev)))
+        out[f"{dev}_s"] = time.perf_counter() - t0
+    check(math.isfinite(out["cuda"]) and
+          math.isclose(out["cuda"], out["cpu"], rel_tol=1e-4, abs_tol=0.0),
+          f"families: {label} full-width f32 loss {out['cuda']} on the card "
+          f"vs {out['cpu']} on the CPU beyond rtol 1e-4")
+    del params
+    return out
+
+
+def family_run(label: str) -> dict:
+    """One family at full width through the main path; checks it and
+    returns its row."""
+    from repro_torch.core.channel import InProcessChannel
+    from repro_torch.core.recovery import FailurePlan
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import train
+    cfg = family_cfg(label)
+    seq = FAMILY_CELLS[label][2]
+    small, _ = reduced_card_equals_cpu(cfg, f"families: {label}")
+    wide = full_width_card_equals_cpu(label)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    # every flash call's shape, to hold against attention_shapes (and so
+    # against what phase 2 checked)
+    seen, flash = collections.Counter(), ops.flash_attention
+
+    def recording(q, k, v, causal):
+        seen[(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+              q.dtype, causal)] += 1
+        return flash(q, k, v, causal)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with RssPeak() as rss:
+        ops.flash_attention = recording
+        try:
+            state, stats = train(cfg, steps=FAMILY_STEPS, batch=FAMILY_BATCH,
+                                 seq=seq, channel=InProcessChannel(),
+                                 shadow_nodes=2, shadow_async=True,
+                                 failure_plan=FailurePlan((FAMILY_FAIL,)),
+                                 seed=0, device="cuda")
+        finally:
+            ops.flash_attention = flash
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        shadow = stats.checkpointer.shadow
+        ckpt = shadow.consolidate()
+        shadow.shutdown()
+        check(all(math.isfinite(x) for x in stats.losses),
+              f"families: {label} non-finite loss {stats.losses}")
+        check(stats.recovered_at == [FAMILY_FAIL - 1],
+              f"families: {label} recovered at {stats.recovered_at}, "
+              f"lost steps")
+        check(ckpt["step"] == FAMILY_STEPS == state.step,
+              f"families: {label} checkpoint at {ckpt['step']}")
+        for tree in ("params", "mu", "nu"):
+            ours = getattr(state, tree)
+            check(set(ckpt[tree]) == set(ours),
+                  f"families: {label} {tree} leaf names differ")
+            for k, t in ours.items():
+                check(torch.equal(ckpt[tree][k].to(t.device), t),
+                      f"families: {label} checkpoint {tree}[{k}] not "
+                      f"bitwise equal to the trainer")
+    ran = stats.steps
+    # forward and remat recompute, per microbatch, per executed step
+    shapes = {k: 2 * n * cfg.microbatches * ran
+              for k, n in attention_shapes(cfg, seq).items()}
+    check(dict(seen) == shapes,
+          f"families: {label} flash calls by shape {dict(seen)}, not the "
+          f"predicted {shapes}")
+    want = sum(shapes.values())
+    check(launches["flash_attention_wgmma"] == want,
+          f"families: {label} wgmma flash launched "
+          f"{launches['flash_attention_wgmma']} times, not {want}")
+    check(launches["flash_attention_mma"] == 0,
+          f"families: {label} mma.sync flash launched "
+          f"{launches['flash_attention_mma']} times on a bf16 path")
+    for name in ("fused_adamw", "bucket_pack"):
+        check(launches[name] > 0, f"families: {label} {name} never launched")
+    row = {
+        "run": label, "arch": FAMILY_CELLS[label][0],
+        "family": cfg.family, "layers": cfg.num_layers,
+        "encoder_layers": cfg.encoder_layers, "experts": cfg.num_experts,
+        "params": sum(t.numel() for t in state.params.values()),
+        "batch": FAMILY_BATCH, "seq": seq,
+        "microbatches": cfg.microbatches, "steps": FAMILY_STEPS,
+        "steps_run": ran, "recovered_at": stats.recovered_at,
+        "lost_steps": [FAMILY_FAIL - 1 - s for s in stats.recovered_at],
+        "losses": stats.losses,
+        "step_ms": stats.steady_iter * 1e3,
+        "step_ms_all": [t * 1e3 for t in stats.iter_times],
+        "capture_ms": float(np.median(stats.capture_times)) * 1e3,
+        "peak_device_gb": peak / 1e9,
+        "host_peak_rss_gb": rss.peak / 1e9 if rss.peak is not None else None,
+        "train_s": train_s, "launches": launches,
+        "flash_launches_predicted": want,
+        "reduced_f32_losses": small, "full_width_f32_loss": wide,
+        "checkpoint_bitwise_equal": True,
+    }
+    print(f"families: {label} ({row['arch']}, {cfg.family}, "
+          f"{cfg.num_layers} layers, {row['params']} params): step "
+          f"{row['step_ms']:.2f} ms, peak {row['peak_device_gb']:.2f} GB, "
+          f"host RSS {row['host_peak_rss_gb']} GB, losses "
+          f"{[round(x, 4) for x in stats.losses]}, recovered at "
+          f"{stats.recovered_at}, launches {launches} (flash predicted "
+          f"{want}, every call at a predicted shape); checkpoint bitwise; "
+          f"reduced f32 card = CPU (rtol 1e-4); full width "
+          f"{wide['layers']} layers f32 seq {wide['seq']}: card "
+          f"{wide['cuda']} vs CPU {wide['cpu']} (rtol 1e-4; CPU "
+          f"{wide['cpu_s']:.1f} s)", flush=True)
+    del state, stats, shadow, ckpt
+    _free()
+    return row
+
+
+def phase_families() -> dict:
+    return {"batch": FAMILY_BATCH, "microbatches": FAMILY_MICROBATCHES,
+            "steps": FAMILY_STEPS, "fail_at": FAMILY_FAIL,
+            "runs": [family_run(label) for label in FAMILY_CELLS]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -1769,6 +2058,8 @@ def main():
     lap("durability")
     harness = phase_harness()
     lap("harness")
+    families = phase_families()
+    lap("families")
     print(f"timing: seconds by phase {secs}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1786,6 +2077,7 @@ def main():
     print(json.dumps({"checkpointers": ckpts}))
     print(json.dumps({"durability": durability}))
     print(json.dumps({"harness": harness}))
+    print(json.dumps({"families": families}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

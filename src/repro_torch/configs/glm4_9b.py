@@ -1,0 +1,19 @@
+"""glm4-9b [dense] — RoPE, GQA, very large vocabulary.
+
+40L d_model=4096 32H (GQA kv=2) d_ff=13696 vocab=151552
+[hf:THUDM/glm-4-9b; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="glm4-9b",
+    family="dense",
+    num_layers=40,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=2,
+    d_ff=13696,
+    vocab_size=151552,
+    head_dim=128,
+    microbatches=8,
+)

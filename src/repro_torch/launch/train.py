@@ -7,8 +7,12 @@
         --checkpointer sync --fail-at 4            # full width, on the card
     python -m repro_torch.launch.train --reduced --device cpu \
         --channel packetized --topology rail-optimized --compress
+    python -m repro_torch.launch.train --arch mamba2-2.7b --reduced \
+        --device cpu --steps 4 --batch 4 --seq 32 --fail-at 3
 
-Prints a JSON report (the JAX CLI's keys) and the one-screen metrics
+``--arch`` takes any of the 15 architectures of ``repro_torch.configs``
+(every family: dense, moe, ssm, hybrid, audio, vlm). Prints a JSON report
+(the JAX CLI's keys, the same for every family) and the one-screen metrics
 digest. The flags are the JAX CLI's (``--channel {inprocess,packetized}``
 and ``--topology`` included), except: ``--mesh`` is gone (one device),
 ``--device {cuda,cpu}`` is new (default ``cuda``; it raises without a GPU),

@@ -1,1 +1,1 @@
-"""Model families (the port of ``repro.models``; dense so far)."""
+"""Model families, the port of ``repro.models``' training paths."""

@@ -1,0 +1,91 @@
+"""zamba2-style hybrid, the port of ``repro.models.hybrid``'s training
+path: a Mamba2 backbone and ONE shared attention block called after every
+``attn_every`` SSM layers.
+
+The shared block is one set of weights (unstacked ``shared_*`` leaves), so
+its gradient is the sum over its calls; each call is recomputed in the
+backward on its own when ``cfg.remat``, as ``jax.checkpoint`` per call
+does there.
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.buckets import TORCH_DTYPES
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as M
+from repro_torch.models import transformer as T
+from repro_torch.models.common import ParamSpec
+
+
+def n_shared_calls(cfg: ModelConfig) -> int:
+    return cfg.num_layers // cfg.attn_every
+
+
+def segments(cfg: ModelConfig) -> list[tuple[int, int, bool]]:
+    """List of (start, end, attn_after) covering all ssm layers."""
+    out, start = [], 0
+    while start < cfg.num_layers:
+        end = min(start + cfg.attn_every, cfg.num_layers)
+        out.append((start, end, end - start == cfg.attn_every))
+        start = end
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    d, v = cfg.d_model, cfg.vocab_size
+    specs = {
+        "embed": ParamSpec((v, d), ("vocab", "wemb"), init="normal"),
+        "final_norm": ParamSpec((d,), ("unsharded",), init="ones"),
+        "unembed": ParamSpec((d, v), ("wemb", "vocab")),
+    }
+    specs.update(M.layer_param_specs(cfg, cfg.num_layers))
+    # one shared transformer block (unstacked)
+    specs.update(T.layer_param_specs(cfg, 1, prefix="shared_", stacked=False))
+    return specs
+
+
+def _shared_lp(params: dict) -> dict:
+    return {k[len("shared_"):]: v for k, v in params.items()
+            if k.startswith("shared_")}
+
+
+def _ssm_stacked(params: dict) -> dict:
+    return {k: params[k] for k in M.SSM_LAYER_KEYS if k in params}
+
+
+def backbone(x, params: dict, cfg: ModelConfig, positions):
+    """The SSM segments, each followed by a call of the shared block when
+    it is ``attn_every`` layers long."""
+    stacked = _ssm_stacked(params)
+    shared = _shared_lp(params)
+
+    def attn_call(x):
+        return T.dense_block(x, shared, cfg, positions)
+
+    for (s0, s1, attn_after) in segments(cfg):
+        seg = {k: v[s0:s1] for k, v in stacked.items()}
+        x = T.run_layers(x, seg, lambda x, lp: M.mamba_block(x, lp, cfg),
+                         cfg.remat)
+        if attn_after:
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(attn_call, x, use_reentrant=False)
+            else:
+                x = attn_call(x)
+    return x
+
+
+def forward(params: dict, cfg: ModelConfig, tokens):
+    b, s = tokens.shape
+    x = L.embed_tokens(params["embed"], tokens,
+                       TORCH_DTYPES[cfg.compute_dtype])
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = backbone(x, params, cfg, positions)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return L.lm_logits(x, params["unembed"])
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+    return L.xent_loss(forward(params, cfg, batch["tokens"]), batch["labels"])

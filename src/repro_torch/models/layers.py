@@ -1,5 +1,5 @@
-"""Shared layers of the dense decoder, the port of ``repro.models.layers``:
-norms, RoPE, attention, MLP, embedding, logits and loss.
+"""Shared layers of every family, the port of ``repro.models.layers``'
+training path: norms, RoPE, attention, MLPs, embedding, logits and loss.
 
 Matmuls run in the config's compute dtype with f32 softmax and norm
 statistics. Weights keep the JAX package's (d_in, d_out) layout, so a layer
@@ -86,14 +86,29 @@ class FlashAttention(torch.autograd.Function):
 
 
 def attn_project_qkv(x, lp, cfg, positions):
+    """q, k, v of one attention layer, contiguous; RoPE unless
+    ``positions`` is None (ViT)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ lp["wq"].to(x.dtype)).reshape(b, s, h, hd)
     k = (x @ lp["wk"].to(x.dtype)).reshape(b, s, kv, hd)
     v = (x @ lp["wv"].to(x.dtype)).reshape(b, s, kv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    return q, k, v.contiguous()
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def mlp(x, lp, cfg):
+    return (mlp_swiglu if cfg.mlp == "swiglu" else mlp_gelu2)(x, lp)
+
+
+def mlp_gelu2(x, lp):
+    """GPT-BigCode-style 2-matrix MLP (granite-34b). The GELU is the tanh
+    form: ``jax.nn.gelu``'s default, where PyTorch's is the erf form."""
+    h = x @ lp["w_up"].to(x.dtype)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ lp["w_down"].to(x.dtype)
 
 
 def mlp_swiglu(x, lp):

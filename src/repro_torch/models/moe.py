@@ -1,0 +1,138 @@
+"""Mixture-of-Experts family (dbrx: 16e top-4; arctic: 128e top-2 + dense
+residual), the port of ``repro.models.moe``'s training path.
+
+Capacity routing as the JAX package computes it on one data shard (one
+token group, G = 1; G > 1 comes with the mesh): each token's top-k experts
+get a position in that expert's capacity buffer (E, C, d) in token order;
+positions at or past the capacity C drop (the token's slot contributes 0
+and gets 0 gradient), the expert FFNs run as batched products over E, and
+the results gather back weighted by the renormalised top-k gates.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.buckets import TORCH_DTYPES
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.common import ParamSpec
+
+AUX_WEIGHT = 0.01               # the load-balance loss's weight
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    d, v, e, fm = cfg.d_model, cfg.vocab_size, cfg.num_experts, cfg.moe_d_ff
+    nl = cfg.num_layers
+    specs = {
+        "embed": ParamSpec((v, d), ("vocab", "wemb"), init="normal"),
+        "final_norm": ParamSpec((d,), ("unsharded",), init="ones"),
+        "unembed": ParamSpec((d, v), ("wemb", "vocab")),
+    }
+    dense = T.layer_param_specs(cfg, nl)
+    if not cfg.dense_residual:
+        for k in ("w_gate", "w_up", "w_down"):    # experts replace dense FFN
+            dense.pop(k)
+    specs.update(dense)
+    specs.update({
+        "router": ParamSpec((nl, d, e), ("layers", "wemb", "unsharded")),
+        "we_gate": ParamSpec((nl, e, d, fm), ("layers", "expert", "wemb", None)),
+        "we_up": ParamSpec((nl, e, d, fm), ("layers", "expert", "wemb", None)),
+        "we_down": ParamSpec((nl, e, fm, d), ("layers", "expert", None, "wemb")),
+    })
+    return specs
+
+
+MOE_EXTRA_KEYS = ("router", "we_gate", "we_up", "we_down")
+
+
+def top_k(probs, k: int):
+    """The ``k`` largest along the last axis, largest first and, among
+    equal values, the lower index first (``jax.lax.top_k``'s order, which
+    ``torch.topk`` does not promise): a stable descending sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots per expert for ``tokens`` tokens in one group."""
+    return max(int(cfg.capacity_factor * tokens * cfg.top_k
+                   / cfg.num_experts), 4)
+
+
+def moe_ffn(x, lp: dict, cfg: ModelConfig):
+    """x: (b, s, d) -> (y, aux_loss). Capacity-routed top-k experts."""
+    b, s, d = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    Tn = b * s
+    C = capacity(cfg, Tn)
+
+    xt = x.reshape(Tn, d)
+    logits = (xt @ lp["router"].to(x.dtype)).float()             # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = top_k(probs, K)                                  # (T, K)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    # Switch-style load-balance aux loss (global means).
+    me = probs.mean(dim=0)
+    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (Tn * K)
+    aux = E * torch.sum(me * ce)
+
+    flat_e = idx.reshape(Tn * K)                                 # (TK,)
+    oh = F.one_hot(flat_e, E)                                    # (TK, E)
+    pos = (torch.cumsum(oh, dim=0) - oh).gather(1, flat_e[:, None])[:, 0]
+    keep = pos < C                                               # else drop
+    slot = torch.where(keep, flat_e * C + pos, 0)
+
+    x_rep = xt.repeat_interleave(K, dim=0)                       # (TK, d)
+    buf = xt.new_zeros(E * C, d).index_put((slot[keep],), x_rep[keep])
+    buf = buf.reshape(E, C, d)
+
+    h = torch.bmm(buf, lp["we_gate"].to(x.dtype))
+    u = torch.bmm(buf, lp["we_up"].to(x.dtype))
+    h = F.silu(h.float()).to(x.dtype) * u
+    y_e = torch.bmm(h, lp["we_down"].to(x.dtype))                # (E, C, d)
+
+    y_tok = torch.where(keep[:, None], y_e.reshape(E * C, d)[slot], 0)
+    y = (y_tok.reshape(Tn, K, d) * gate[..., None].to(x.dtype)).sum(dim=1)
+    return y.reshape(b, s, d), aux
+
+
+def moe_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True):
+    x = T.attn_block(x, lp, cfg, positions, causal=causal)
+    xn = L.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    y, aux = moe_ffn(xn, lp, cfg)
+    if cfg.dense_residual:
+        y = y + L.mlp_swiglu(xn, lp)
+    return x + y, aux
+
+
+def _stacked(params: dict, cfg: ModelConfig) -> dict:
+    keys = [k for k in T.LAYER_KEYS if k in params] + list(MOE_EXTRA_KEYS)
+    return {k: params[k] for k in keys}
+
+
+def forward(params: dict, cfg: ModelConfig, tokens):
+    """Logits and the aux loss averaged over the layers."""
+    cd = TORCH_DTYPES[cfg.compute_dtype]
+    b, s = tokens.shape
+    x = L.embed_tokens(params["embed"], tokens, cd)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+
+    def one_layer(carry, lp):
+        x, aux_sum = carry
+        y, aux = moe_block(x, lp, cfg, positions)
+        return y.to(x.dtype), aux_sum + aux
+
+    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = T.run_layers((x, aux0), _stacked(params, cfg), one_layer,
+                          cfg.remat)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return L.lm_logits(x, params["unembed"]), aux / cfg.num_layers
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
+            aux_weight: float = AUX_WEIGHT):
+    logits, aux = forward(params, cfg, batch["tokens"])
+    return L.xent_loss(logits, batch["labels"]) + aux_weight * aux

@@ -186,6 +186,26 @@ def test_capture_layout_and_plan_of_tinyllama_equal_jax():
     assert tcm.MOMENT_BYTES_PER_ELEM == jcm.MOMENT_BYTES_PER_ELEM
 
 
+@pytest.mark.parametrize("arch", jconfigs.ASSIGNED + jconfigs.PAPER)
+def test_capture_layout_and_plan_of_every_arch_equal_jax(arch):
+    """Every architecture's capture-side layout (unstacked per layer and
+    per expert) and shadow plan, metadata only, as the JAX package's."""
+    jcfg, tcfg = jconfigs.get(arch), tconfigs.get(arch)
+    assert tcm.capture_leaf_specs(tcfg) == jcm.capture_leaf_specs(jcfg)
+    jl, tl = jcm.capture_layout(jcfg), tcm.capture_layout(tcfg)
+    assert len(tl.buckets) == len(jl.buckets)
+    for a, b in zip(tl.buckets, jl.buckets):
+        assert (a.bucket_id, a.size, a.nbytes) == \
+            (b.bucket_id, b.size, b.nbytes)
+        assert [dataclasses.astuple(s) for s in a.slots] == \
+            [dataclasses.astuple(s) for s in b.slots]
+    tplan, jplan = (tcm.shadow_plan_for_config(tcfg),
+                    jcm.shadow_plan_for_config(jcfg))
+    _same(tplan, jplan)
+    if arch == "arctic-480b":
+        assert tplan.n_nodes == 17
+
+
 def test_flush_terms_size_the_fleet_and_compression_relaxes_them():
     """The durability terms as tests/test_durability.py drives them, on
     the port: a tier that barely absorbs the largest bucket per epoch

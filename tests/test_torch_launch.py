@@ -80,6 +80,29 @@ def test_every_checkpointer_recovers_twice(run, jax_report_keys, capsys):
                                      if "--compress" in run else base)
 
 
+@pytest.mark.parametrize("arch", ["granite-34b", "arctic-480b",
+                                  "mamba2-2.7b", "zamba2-1.2b",
+                                  "whisper-medium", "llava-next-mistral-7b"])
+def test_every_family_runs_through_the_driver(arch, jax_report_keys,
+                                              capsys):
+    """One arch per family reachable by ``--arch`` (dense gelu2, moe, ssm,
+    hybrid, audio, vlm) at ``--reduced --device cpu``: the JAX CLI's report
+    keys, one recovery with no step lost, and the shadow bitwise the
+    trainer."""
+    r = launch.run(["--arch", arch] + BASE + [
+        "--checkpointer", "checkmate", "--steps", "4", "--fail-at", "3"])
+    rep = r.report
+    assert set(rep) == set(jax_report_keys)
+    assert rep["arch"] == f"{arch}-smoke"
+    assert rep["recoveries"] == 1 and r.stats.recovered_at == [2]
+    assert rep["shadow"]["lag"] == 0 and rep["checkpoints"] == 4
+    ckpt = r.checkpointer.shadow.consolidate()
+    assert ckpt["step"] == r.state.step == 4
+    for tree in ("params", "mu", "nu"):
+        for k, t in getattr(r.state, tree).items():
+            assert torch.equal(ckpt[tree][k], t), f"{tree}[{k}]"
+
+
 def test_none_runs_and_cannot_recover():
     r = launch.run(BASE + ["--checkpointer", "none", "--steps", "3"])
     assert r.report["checkpoints"] == 0 and r.report["stall_total_s"] == 0.0

@@ -1,14 +1,17 @@
 """Where a training step's device time goes in the PyTorch/CUDA port.
 
-    python3 tools/profile_port.py
+    python3 tools/profile_port.py                    # the main path
+    python3 tools/profile_port.py --family whisper vit   # phase 8's runs
 
 Runs the main path of ``chip_smoke.py`` (tinyllama-1.1b, all 22 layers, with
 its ``MAIN_RUN``: global batch 8 x seq 2048 through an in-process channel
-into a 2-node async shadow on the card), warms up for 2 steps, then records
-2 steps with ``torch.profiler``. Prints one
-JSON line: wall ms per step, device busy ms (the union of kernel and copy
-intervals over all streams) and idle share, device time by category, and
-the kernels that take the most device time. Needs one GPU.
+into a 2-node async shadow on the card), or with ``--family`` each named
+run of its phase 8 (``FAMILY_CELLS``: the config as cut there, batch 4 in 2
+microbatches, through the same channel and shadow), warms up for 2 steps,
+then records 2 steps with ``torch.profiler``. Prints one JSON line per run:
+wall ms per step, device busy ms (the union of kernel and copy intervals
+over all streams) and idle share, device time by category, and the
+kernels that take the most device time. Needs one GPU.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import MAIN_RUN  # noqa: E402
+import chip_smoke  # noqa: E402
 
 WARMUP, STEPS = 2, 2
 
@@ -60,14 +63,11 @@ def union_ms(intervals) -> float:
     return total / 1e3
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_port: needs a GPU")
-    from repro_torch import configs
+def profile_run(label: str, cfg, run: dict) -> dict:
+    """Profile ``train(cfg, **run)``'s steps WARMUP+1..WARMUP+STEPS."""
     from repro_torch.core.channel import InProcessChannel
     from repro_torch.train.loop import train
 
-    cfg = configs.get("tinyllama-1.1b")
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
 
@@ -82,7 +82,7 @@ def main():
             prof.stop()
 
     _, stats = train(cfg, steps=WARMUP + STEPS, channel=InProcessChannel(),
-                     step_hook=hook, device="cuda", **MAIN_RUN)
+                     step_hook=hook, device="cuda", **run)
     stats.checkpointer.shadow.shutdown()
 
     by_name = defaultdict(float)
@@ -104,8 +104,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(json.dumps({
-        "card": smi, "layers": cfg.num_layers, "steps": STEPS,
+    return {
+        "run": label, "card": smi, "layers": cfg.num_layers, "steps": STEPS,
         "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
         "idle_share": 1.0 - busy / wall,
         "device_ms_per_step_by_category": {
@@ -114,7 +114,29 @@ def main():
         "top_kernels_ms_per_step": [(n[:90], ms / STEPS)
                                     for n, ms in top],
         "iter_ms": [t * 1e3 for t in stats.iter_times],
-    }))
+    }
+
+
+def main(argv=None):
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_port: needs a GPU")
+    from repro_torch import configs
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        print(json.dumps(profile_run("main", configs.get("tinyllama-1.1b"),
+                                     chip_smoke.MAIN_RUN)))
+        return
+    if argv[0] != "--family" or not set(argv[1:]) <= set(
+            chip_smoke.FAMILY_CELLS):
+        raise SystemExit(f"usage: profile_port.py [--family LABEL ...], "
+                         f"LABEL in {list(chip_smoke.FAMILY_CELLS)}")
+    for label in argv[1:] or chip_smoke.FAMILY_CELLS:
+        run = dict(batch=chip_smoke.FAMILY_BATCH,
+                   seq=chip_smoke.FAMILY_CELLS[label][2], shadow_nodes=2,
+                   shadow_async=True)
+        print(json.dumps(profile_run(label, chip_smoke.family_cfg(label),
+                                     run)), flush=True)
+        chip_smoke._free()
 
 
 if __name__ == "__main__":
