@@ -9,8 +9,8 @@ Phases, in order; any failed check raises and the script exits nonzero:
 2. kernels — hold each kernel against its plain PyTorch version on the card
              (AdamW and pack bitwise, both flash kernels to a tolerance, at
              head dims from 8 to 256 in bf16 and f32, each case on the
-             kernel ``route`` names, at every shape phase 8 launches
-             (derived from its cells: whisper's 448 x 1500
+             kernel ``route`` names, at every shape phases 8 and 9 launch
+             (derived from their cells: whisper's 448 x 1500
              cross-attention, its encoder and decoder, the non-causal ViT,
              GQA 7:1 and 48:1, zamba2's shared block, llava), at dbrx's
              and gpt2-1.5b's shapes, and at sq > skv and at f32 sq != skv),
@@ -115,12 +115,34 @@ Phases, in order; any failed check raises and the script exits nonzero:
              and pack
              launched. Each prints its step ms, peak device memory and
              host RSS.
+9. serving — prefill and greedy decode (``registry.prefill`` /
+             ``decode_step``, bf16 compute from f32 params cast as
+             ``train.step.serving_params`` casts them) at full width:
+             tinyllama-1.1b at full depth, batch 8 x prompt 2048 + 64
+             decode steps (the slice's main run), and every serving family
+             at phase 8's cut, batch 4 x its phase-8 sequence + 32 steps
+             (granite, arctic, mamba2, zamba2, whisper after 1500 frames,
+             llava after 576 patches). Each: finite logits; the cache's
+             length prompt (+ patches) + steps; the wgmma flash kernel
+             launched exactly once per prefill attention call (layers;
+             zamba2 its shared-block calls; whisper 24 + 2 x 24; mamba2 0),
+             each at a shape phase 2 held, and no kernel during decode;
+             the mma.sync one never; a second decode from the same prefill
+             the same tokens. Before each, its config at 2 layers (zamba2
+             one segment, whisper 2 + 2), f32, batch 1, at most 512 prompt
+             tokens and 4 decode steps: logits on the card equal the CPU's
+             (plain versions) and the full forward's at the same positions,
+             to rtol 1e-4 / atol 1e-4. Each prints prefill ms, decode ms a
+             token (median after the first), tokens/s, and peaks; the dense
+             run also times the plain ``attention_decode`` at its last
+             decode shape beside its K/V byte bound.
 
 Output: a ``main_path`` JSON line, ``flash_d128``, ``flash_f32_d128``,
-``flash_bf16_d80`` and ``pack_host`` timing lines, a ``kernels`` JSON line,
+``flash_bf16_d80``, ``flash_prefill`` (with phase 9's dense prefill
+launches) and ``pack_host`` timing lines, a ``kernels`` JSON line,
 a ``checkpointers`` JSON line, a ``durability`` JSON line, a ``harness``
-JSON line, a ``families`` JSON line, the card's name and power limit, and
-as the last line
+JSON line, a ``families`` JSON line, a ``serving`` JSON line, the card's
+name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits nonzero.
 """
@@ -315,6 +337,8 @@ def check_pack(dev) -> float:
 # The head_dim-128 shape timed beside the main path's (the dense configs
 # after tinyllama have head_dim 128): (b, s, h, kv, d, dtype, causal).
 FLASH_D128 = (1, 2048, 32, 8, 128, torch.bfloat16, True)
+# the dense serving run's prefill (phase 9): batch 8, tinyllama's heads
+FLASH_PREFILL = (8, 2048, 32, 4, 64, torch.bfloat16, True)
 # f32 at head_dim 128 (refused before the mma.sync kernel), and bf16 at
 # vit-h-14's heads (head_dim 80, the wgmma kernel zero-filled to 128)
 FLASH_F32_D128 = (1, 2048, 32, 8, 128, torch.float32, True)
@@ -565,7 +589,8 @@ def time_kernels(dev, cfg, errs: dict) -> tuple[list[dict], dict, dict]:
     extra = {label: flash_row(dev, gen, case[:5], case[5], errs)
              for label, case in (("flash_d128", FLASH_D128),
                                  ("flash_f32_d128", FLASH_F32_D128),
-                                 ("flash_bf16_d80", FLASH_BF16_D80))}
+                                 ("flash_bf16_d80", FLASH_BF16_D80),
+                                 ("flash_prefill", FLASH_PREFILL))}
     for r in rows + list(extra.values()):
         r["route"] = "cuda"
         by = ", ".join(filter(None, (r["bound_by"], r.get("bound_unit"))))
@@ -1826,17 +1851,19 @@ def family_cfg(label: str):
                                microbatches=FAMILY_MICROBATCHES, **over)
 
 
-def attention_shapes(cfg, seq: int) -> dict:
-    """The flash forward calls of one microbatch's forward of ``cfg``'s
+def attention_shapes(cfg, seq: int, batch: int = 0) -> dict:
+    """The flash forward calls of one forward (or prefill) of ``cfg``'s
     model at token sequence ``seq``: {(b, sq, skv, h, kv, d, dtype,
-    causal): calls}, b = FAMILY_BATCH // cfg.microbatches."""
+    causal): calls}, b = ``batch``, or one microbatch of phase 8's,
+    FAMILY_BATCH // cfg.microbatches."""
     from repro_torch.core.buckets import TORCH_DTYPES
     from repro_torch.models import hybrid
     calls = collections.Counter()
+    b = batch or FAMILY_BATCH // cfg.microbatches
 
     def add(n, sq, skv, causal, kv=cfg.num_kv_heads):
-        calls[(FAMILY_BATCH // cfg.microbatches, sq, skv, cfg.num_heads, kv,
-               cfg.head_dim, TORCH_DTYPES[cfg.compute_dtype], causal)] += n
+        calls[(b, sq, skv, cfg.num_heads, kv, cfg.head_dim,
+               TORCH_DTYPES[cfg.compute_dtype], causal)] += n
     if cfg.family == "hybrid":            # the shared block's calls
         add(hybrid.n_shared_calls(cfg), seq, seq, True)
     elif cfg.family == "audio":          # encoder; decoder self and cross
@@ -1855,15 +1882,19 @@ def attention_shapes(cfg, seq: int) -> dict:
 
 
 def family_flash_cases() -> list:
-    """Every flash shape phase 8 launches (from FAMILY_CELLS, so the two
-    cannot drift apart), then FLASH_CONFIG_CASES' and FLASH_EXTRA_CASES."""
+    """Every flash shape phase 8 launches (from FAMILY_CELLS) and phase 9's
+    prefills launch (from serve_cells()), so neither can drift from what
+    phase 2 holds; then FLASH_CONFIG_CASES' and FLASH_EXTRA_CASES."""
     from repro_torch import configs
-    cells = [(family_cfg(label), FAMILY_CELLS[label][2])
+    cells = [(family_cfg(label), FAMILY_CELLS[label][2], 0)
              for label in FAMILY_CELLS]
     cells += [(dataclasses.replace(configs.get(arch),
-                                   microbatches=FAMILY_MICROBATCHES), seq)
+                                   microbatches=FAMILY_MICROBATCHES), seq, 0)
               for arch, seq in FLASH_CONFIG_CASES]
-    cases = [c for cfg, seq in cells for c in attention_shapes(cfg, seq)]
+    cells += [(serve_cfg(label), prompt, b)
+              for label, (_, _, b, prompt, _) in serve_cells().items()]
+    cases = [c for cfg, seq, b in cells
+             for c in attention_shapes(cfg, seq, b)]
     return list(dict.fromkeys(cases + list(FLASH_EXTRA_CASES)))
 
 
@@ -2021,6 +2052,313 @@ def phase_families() -> dict:
             "runs": [family_run(label) for label in FAMILY_CELLS]}
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+# Phase 9: serving, greedy, bf16 compute from f32 params held as the
+# reference holds them (matmul weights cast once up front, norms and the
+# SSM's dt_bias and A_log kept f32). label: (arch, config overrides, batch,
+# prompt tokens, decode steps). The dense run is the slice's main run, at
+# full width and depth; the others take phase 8's cut (FAMILY_CELLS) and its
+# token sequence as the prompt (whisper's 448 after 1500 frames, llava's
+# 1472 after 576 patches). Each decode step writes one cache position.
+SERVE_DENSE = ("tinyllama-1.1b", {}, 8, 2048, 64)
+SERVE_BATCH, SERVE_STEPS = 4, 32
+# the f32 checks: FW_LAYERS layers (the hybrid one segment, whisper 2 + 2),
+# batch 1, at most FW_SEQ prompt tokens, SERVE_FW_STEPS decode steps
+SERVE_FW_STEPS = 4
+SERVE_TOL = (1e-4, 1e-4)            # rtol, atol of the f32 logits
+
+
+def serve_cells() -> dict:
+    cells = {"dense": SERVE_DENSE}
+    for label, (arch, over, seq) in FAMILY_CELLS.items():
+        if label != "vit":             # no serving path (as in the reference)
+            cells[label] = (arch, over, SERVE_BATCH, seq, SERVE_STEPS)
+    return cells
+
+
+def serve_cfg(label: str):
+    from repro_torch import configs
+    arch, over, *_ = serve_cells()[label]
+    return dataclasses.replace(configs.get(arch), **over)
+
+
+def serve_inputs(cfg, b: int, n_tokens: int, dtype, device) -> tuple:
+    """Tokens (b, n_tokens) and the family's frames or patch embeddings,
+    drawn from np.random.default_rng(0) in ``launch.serve``'s order and
+    scale."""
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, n_tokens)),
+                           device=device)
+    extra = {}
+    for name, family, n in (("frames", "audio", cfg.encoder_seq),
+                            ("patch_embeds", "vlm", cfg.num_patches)):
+        if cfg.family == family:
+            extra[name] = torch.as_tensor(
+                rng.standard_normal((b, n, cfg.d_model)),
+                device=device).to(dtype) * 0.02
+    return toks, extra
+
+
+def _logits_close(got, want, what: str) -> float:
+    rtol, atol = SERVE_TOL
+    got, want = got.float().cpu(), want.float().cpu()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+    err = (got - want).abs()
+    ratio = (err / (rtol * want.abs() + atol)).max().item()
+    check(ratio <= 1.0, f"{what}: max err {err.max().item()}, {ratio:.3f} "
+                        f"times rtol {rtol} / atol {atol}")
+    return err.max().item()
+
+
+def serve_card_equals_cpu(label: str) -> dict:
+    """``label``'s config cut to FW_LAYERS layers, f32, batch 1: prefill
+    of at most FW_SEQ tokens and SERVE_FW_STEPS teacher-forced decode
+    steps on the card (kernels) and on the CPU (plain versions) from the
+    same weights, logits within SERVE_TOL; and on the card, the prefill's
+    and each decode's logits equal the full forward's at those positions
+    (the twin of tests/test_models.py's decode-vs-forward check). A MoE
+    runs at capacity_factor E / top_k: no token drops in the forward over
+    the whole sequence, as none drops in decode, else the two differ."""
+    from repro_torch.launch.serve import max_seq_for
+    from repro_torch.models import registry
+    cfg = serve_cfg(label)
+    over = dict(num_layers=(cfg.attn_every if cfg.family == "hybrid"
+                            else min(cfg.num_layers, FW_LAYERS)),
+                encoder_layers=min(cfg.encoder_layers, FW_LAYERS),
+                compute_dtype="float32")
+    if cfg.num_experts:
+        over["capacity_factor"] = cfg.num_experts / cfg.top_k
+    cfg = dataclasses.replace(cfg, **over)
+    prompt, n = min(serve_cells()[label][3], FW_SEQ), SERVE_FW_STEPS
+    params = {"cuda": registry.init_params(cfg, seed=0, device="cuda")}
+    params["cpu"] = {k: v.cpu() for k, v in params["cuda"].items()}
+    toks, extra = serve_inputs(cfg, 1, prompt + n, torch.float32, "cpu")
+    max_seq = max_seq_for(cfg, prompt, n)
+    out, secs = {}, {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        t = toks.to(dev)
+        ex = {k: v.to(dev) for k, v in extra.items()}
+        cache, logits = registry.prefill(params[dev], cfg, t[:, :prompt],
+                                         max_seq, **ex)
+        steps = [logits[:, -1]]
+        for i in range(n):
+            logits, cache = registry.decode_step(
+                params[dev], cfg, cache, t[:, prompt + i:prompt + i + 1])
+            steps.append(logits[:, -1])
+        out[dev] = torch.stack(steps, dim=1).cpu()
+        secs[dev] = time.perf_counter() - t0
+        check(cache["length"] == max_seq,
+              f"serving: {label} f32 cache length {cache['length']}")
+    err_cpu = _logits_close(out["cuda"], out["cpu"],
+                            f"serving: {label} f32 card vs CPU")
+    with torch.no_grad():
+        mod = registry.family_module(cfg)
+        ex = [v.cuda() for v in extra.values()]
+        full = mod.forward(params["cuda"], cfg, toks.cuda(), *ex)
+        full = full[0] if cfg.family == "moe" else full
+    err_fwd = _logits_close(out["cuda"], full[:, prompt - 1:prompt + n],
+                            f"serving: {label} f32 prefill + decode vs the "
+                            f"forward")
+    del params, full
+    return {"layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+            "prompt": prompt, "decode_steps": n,
+            "max_err_card_vs_cpu": err_cpu, "max_err_vs_forward": err_fwd,
+            "cpu_s": secs["cpu"], "card_s": secs["cuda"]}
+
+
+def decode_loop(params, cfg, cache, tok, steps: int) -> dict:
+    """Greedy decode of ``steps`` tokens from ``tok`` (b, 1): the step
+    ``build_decode_step`` builds (argmax of the last logits), with the
+    logits kept to check them finite. No host sync inside the loop; each
+    step's device time by CUDA events."""
+    from repro_torch.models import registry
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    finite = torch.ones((), dtype=torch.bool, device=tok.device)
+    toks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(steps):
+        logits, cache = registry.decode_step(params, cfg, cache, tok)
+        finite &= torch.isfinite(logits).all()
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        toks.append(tok)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return {"tokens": torch.cat(toks, dim=1), "cache": cache,
+            "finite": bool(finite), "wall_s": wall, "step_ms": step_ms}
+
+
+def time_decode_attention(cache, cfg) -> dict:
+    """The plain ``attention_decode`` at the dense run's last decode shape
+    (layer 0's cache, every position written), beside its bound (the bytes
+    of K and V it must read) and SDPA on the same inputs (kv expanded, a
+    yardstick only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import expand_kv
+    from repro_torch.models import layers as L
+    kc, vc = cache["k"][0], cache["v"][0]
+    b, S, kv, d = kc.shape
+    h = cfg.num_heads
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(kc.dtype)
+    length = cache["length"]
+    nbytes = 2.0 * kc.numel() * kc.element_size()
+    qt = q.transpose(1, 2)
+    kt, vt = (expand_kv(t, h).transpose(1, 2) for t in (kc, vc))
+    ms = time_ms(lambda: L.attention_decode(q, kc, vc, length), 20, 3)
+    return {"shape": [b, S, h, kv, d], "dtype": str(kc.dtype).removeprefix(
+        "torch."), "length": length, "ms": ms,
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "kv_bytes": nbytes, "sdpa_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), 20, 3)}
+
+
+def serve_run(label: str) -> dict:
+    """One family's serving at full width: prefill (every attention call
+    on the wgmma flash kernel, at a shape phase 2 held), greedy decode
+    (no flash launch), a second decode from the same prefill giving the
+    same tokens; checks it and returns its row."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import max_seq_for
+    from repro_torch.models import registry
+    from repro_torch.train.step import serving_params
+    arch, _, b, prompt, steps = serve_cells()[label]
+    cfg = serve_cfg(label)
+    fw = serve_card_equals_cpu(label)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    seen, flash = collections.Counter(), ops.flash_attention
+
+    def recording(q, k, v, causal):
+        seen[(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+              q.dtype, causal)] += 1
+        return flash(q, k, v, causal)
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        params = serving_params(cfg, registry.init_params(cfg, seed=0,
+                                                          device="cuda"))
+        init_s = time.perf_counter() - t0
+        toks, extra = serve_inputs(cfg, b, prompt, torch.bfloat16, "cuda")
+        max_seq = max_seq_for(cfg, prompt, steps)
+        prefill_ms = []
+        for i in range(2):             # the first counted, the second warm
+            ops.reset_launch_counts()
+            ops.flash_attention = recording
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cache, logits = registry.prefill(params, cfg, toks, max_seq,
+                                                 **extra)
+                torch.cuda.synchronize()
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                ops.flash_attention = flash
+            if i == 0:
+                prefill_launches = ops.launch_counts()
+                prefill_seen = dict(seen)
+        check(bool(torch.isfinite(logits).all()),
+              f"serving: {label} non-finite prefill logits")
+        shapes = attention_shapes(cfg, prompt, b)
+        check(prefill_seen == shapes,
+              f"serving: {label} flash calls by shape {prefill_seen}, not "
+              f"the predicted {shapes}")
+        want = sum(shapes.values())
+        check(prefill_launches["flash_attention_wgmma"] == want,
+              f"serving: {label} prefill launched the wgmma flash "
+              f"{prefill_launches['flash_attention_wgmma']} times, not {want}")
+        check(prefill_launches["flash_attention_mma"] == 0,
+              f"serving: {label} prefill launched the mma.sync flash "
+              f"{prefill_launches['flash_attention_mma']} times")
+        first = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        saved = {k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in cache.items()}
+        ops.reset_launch_counts()
+        run = decode_loop(params, cfg, cache, first, steps)
+        decode_launches = ops.launch_counts()
+        check(all(n == 0 for n in decode_launches.values()),
+              f"serving: {label} decode launched {decode_launches}")
+        check(run["finite"], f"serving: {label} non-finite decode logits")
+        length = run["cache"]["length"]
+        check(length == max_seq,
+              f"serving: {label} cache length {length}, not {max_seq}")
+        again = decode_loop(params, cfg, saved, first, steps)
+        check(torch.equal(again["tokens"], run["tokens"]),
+              f"serving: {label} a second decode from the same prefill gave "
+              f"other tokens")
+        decode_attn = (time_decode_attention(run["cache"], cfg)
+                       if label == "dense" else None)
+        peak = torch.cuda.max_memory_allocated()
+    ms = run["step_ms"][1:]
+    row = {
+        "run": label, "arch": arch, "family": cfg.family,
+        "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+        "experts": cfg.num_experts,
+        "params": sum(t.numel() for t in params.values()),
+        "batch": b, "prompt": prompt, "decode_steps": steps,
+        "cache_length": length, "init_s": init_s,
+        "prefill_ms": prefill_ms[1], "prefill_first_ms": prefill_ms[0],
+        "prefill_tokens_per_s": b * (max_seq - steps) / prefill_ms[1] * 1e3,
+        "decode_ms_per_token": statistics.median(ms),
+        "decode_ms_first": run["step_ms"][0],
+        "decode_ms_again": statistics.median(again["step_ms"][1:]),
+        "decode_tokens_per_s": b * steps / run["wall_s"],
+        "decode_wall_s": run["wall_s"],
+        "prefill_launches": prefill_launches,
+        "flash_launches_predicted": want,
+        "flash_shapes": [[*k[:6], str(k[6]).removeprefix("torch."), k[7], n]
+                         for k, n in shapes.items()],
+        "decode_launches": decode_launches,
+        "sample_tokens": run["tokens"][0, :8].tolist(),
+        "second_decode_same_tokens": True,
+        "peak_device_gb": peak / 1e9,
+        "host_peak_rss_gb": rss.peak / 1e9 if rss.peak is not None else None,
+        "f32_check": fw,
+    }
+    if decode_attn is not None:
+        # the whole step's bound: every weight but the embedding table (b
+        # rows of it are gathered) and every layer's K and V, read once
+        nbytes = sum(t.numel() * t.element_size() for k, t in params.items()
+                     if k != "embed") + decode_attn["kv_bytes"] * cfg.num_layers
+        decode_attn.update(step_ms=row["decode_ms_per_token"],
+                           step_bound_ms=nbytes / H100_BYTES_PER_S * 1e3,
+                           step_bytes=nbytes)
+        row["decode_attention"] = decode_attn
+    print(f"serving: {label} ({arch}, {cfg.family}, {cfg.num_layers} "
+          f"layers, {row['params']} params), batch {b} x prompt {prompt} + "
+          f"{steps} decode steps: prefill {prefill_ms[1]:.2f} ms (first "
+          f"{prefill_ms[0]:.2f}), decode {row['decode_ms_per_token']:.3f} ms "
+          f"a token (median after the first; {row['decode_tokens_per_s']:.1f}"
+          f" tokens/s), peak {row['peak_device_gb']:.2f} GB, host RSS "
+          f"{row['host_peak_rss_gb']} GB; prefill flash {prefill_launches} "
+          f"(predicted {want}, every call at a predicted shape), decode "
+          f"{decode_launches}; second decode same tokens; f32 "
+          f"{fw['layers']} layers, prompt {fw['prompt']}: card vs CPU max "
+          f"err {fw['max_err_card_vs_cpu']}, vs forward "
+          f"{fw['max_err_vs_forward']} (CPU {fw['cpu_s']:.1f} s)", flush=True)
+    if decode_attn is not None:
+        print(f"serving: attention_decode (plain) at {decode_attn['shape']} "
+              f"{decode_attn['dtype']}, length {decode_attn['length']}: "
+              f"{decode_attn['ms']:.4f} ms, bound {decode_attn['bound_ms']:.4f}"
+              f" ms (K and V bytes), SDPA {decode_attn['sdpa_ms']:.4f} ms; "
+              f"the decode step {decode_attn['step_ms']:.3f} ms, bound "
+              f"{decode_attn['step_bound_ms']:.4f} ms (weights and every "
+              f"layer's K and V)", flush=True)
+    del params, cache, saved, run, again, logits
+    _free()
+    return row
+
+
+def phase_serving() -> dict:
+    return {"steps_dense": SERVE_DENSE[4], "steps": SERVE_STEPS,
+            "tolerance_f32": {"rtol": SERVE_TOL[0], "atol": SERVE_TOL[1]},
+            "runs": [serve_run(label) for label in serve_cells()]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -2060,6 +2398,12 @@ def main():
     lap("harness")
     families = phase_families()
     lap("families")
+    serving = phase_serving()
+    lap("serving")
+    # the flash row at the dense serving run's prefill shape: its launches
+    # are that run's prefill's
+    flash_extra["flash_prefill"]["launches"] = \
+        serving["runs"][0]["prefill_launches"]["flash_attention_wgmma"]
     print(f"timing: seconds by phase {secs}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2069,8 +2413,7 @@ def main():
             "other_bound_unit")
     print(json.dumps({"main_path": main_out}))
     for label, r in flash_extra.items():
-        print(json.dumps({label: {k: r[k] for k in keys[:4] + keys[5:] + more
-                                  if k in r}}))
+        print(json.dumps({label: {k: r[k] for k in keys + more if k in r}}))
     print(json.dumps({"pack_host": pack_host}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys + more if k in r}
                                   for r in rows]}))
@@ -2078,6 +2421,7 @@ def main():
     print(json.dumps({"durability": durability}))
     print(json.dumps({"harness": harness}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"serving": serving}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

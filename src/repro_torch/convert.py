@@ -3,7 +3,9 @@
 ``state_from_numpy`` takes a JAX ``TrainState``'s leaves (``np.asarray`` of
 each) and returns the port's state; the tests carry the JAX package's
 ``init_params`` into the port this way, so both start from the same
-weights.
+weights. ``cache_from_numpy`` and ``cache_to_numpy`` move a serving
+cache (numpy leaves, ``length`` an int) between the two, so decode can be
+held against the reference from the same cache.
 """
 from __future__ import annotations
 
@@ -39,3 +41,18 @@ def state_from_numpy(params: dict, mu: dict, nu: dict, step: int,
                       mu={k: to_tensor(v, device) for k, v in mu.items()},
                       nu={k: to_tensor(v, device) for k, v in nu.items()},
                       step=int(step))
+
+
+def cache_from_numpy(cache: dict, device=None) -> dict:
+    """A JAX serving cache (array leaves, ``length`` a scalar) as the
+    port's: tensors on ``device`` and ``length`` a host int."""
+    device = resolve(device)
+    return {k: int(v) if k == "length" else to_tensor(v, device)
+            for k, v in cache.items()}
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """The port's cache as numpy (bfloat16 widened to float32), with
+    ``length`` an ``np.int32`` as the JAX package keeps it."""
+    return {k: np.int32(v) if k == "length" else to_numpy(v)
+            for k, v in cache.items()}

@@ -1,0 +1,110 @@
+"""Batched serving CLI, the port of ``repro.launch.serve``: prefill and
+greedy decode with a KV (or SSM) cache.
+
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --batch 8 \
+        --prompt-len 2048 --gen 64                  # full width, on the card
+    python -m repro_torch.launch.serve --arch glm4-9b --reduced \
+        --batch 4 --prompt-len 32 --gen 16 --device cpu
+
+Prints the reference's JSON report (same keys). Prompt tokens, frames
+(audio) and patch embeddings (vlm) are drawn from
+``np.random.default_rng(seed)`` in the reference's order and scale; the
+weights from the port's own ``init_params(seed)``. Differences from the
+reference's flags: no ``--mesh`` (one device), and ``--device {cuda,cpu}``
+(default ``cuda``; it raises without a GPU). A vlm's cache holds the
+patches too: ``num_patches + prompt_len + gen`` positions, where the
+reference sizes it ``prompt_len + gen`` and so cannot serve a vlm. The
+clock is read after a device synchronisation each time.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, choices=["cuda", "cpu"])
+    return ap.parse_args(argv)
+
+
+def max_seq_for(cfg, prompt_len: int, gen: int) -> int:
+    """Cache positions: the prompt and the generated tokens, and before
+    them a vlm's patches."""
+    return prompt_len + gen + (cfg.num_patches if cfg.family == "vlm" else 0)
+
+
+def run(args: argparse.Namespace) -> dict:
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.device import resolve
+    from repro_torch.models import registry
+    from repro_torch.train.step import build_decode_step, serving_params
+
+    device = resolve(args.device)
+    cfg = C.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+
+    def clock() -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    rng = np.random.default_rng(args.seed)
+    params = serving_params(cfg, registry.init_params(cfg, args.seed, device))
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
+        dtype=torch.int64, device=device)
+    extra = {}
+    if cfg.family == "audio":
+        extra["frames"] = torch.as_tensor(
+            rng.standard_normal((args.batch, cfg.encoder_seq, cfg.d_model)),
+            device=device).to(torch.bfloat16) * 0.02
+    if cfg.family == "vlm":
+        extra["patch_embeds"] = torch.as_tensor(
+            rng.standard_normal((args.batch, cfg.num_patches, cfg.d_model)),
+            device=device).to(torch.bfloat16) * 0.02
+
+    t0 = clock()
+    cache, logits = registry.prefill(
+        params, cfg, tokens, max_seq_for(cfg, args.prompt_len, args.gen),
+        **extra)
+    t_prefill = clock() - t0
+
+    decode = build_decode_step(cfg)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    generated = [tok]
+    t0 = clock()
+    for _ in range(args.gen - 1):
+        tok, cache = decode(params, cache, tok)
+        generated.append(tok)
+    t_decode = clock() - t0
+
+    out = torch.cat(generated, dim=1).cpu().numpy()
+    return {
+        "arch": cfg.name, "batch": args.batch,
+        "prompt_len": args.prompt_len, "generated": args.gen,
+        "prefill_s": round(t_prefill, 3),
+        "decode_s": round(t_decode, 3),
+        "decode_tok_per_s": round(args.batch * (args.gen - 1)
+                                  / max(t_decode, 1e-9), 1),
+        "sample_tokens": out[0][:8].tolist(),
+    }
+
+
+def main(argv=None):
+    print(json.dumps(run(parse_args(argv)), indent=2))
+
+
+if __name__ == "__main__":
+    main()

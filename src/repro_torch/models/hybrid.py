@@ -1,6 +1,10 @@
-"""zamba2-style hybrid, the port of ``repro.models.hybrid``'s training
-path: a Mamba2 backbone and ONE shared attention block called after every
-``attn_every`` SSM layers.
+"""zamba2-style hybrid, the port of ``repro.models.hybrid``: a Mamba2
+backbone and ONE shared attention block called after every ``attn_every``
+SSM layers; training, prefill and decode.
+
+Each call of the shared block sees other activations, so in serving each
+has its own KV cache slot: ``attn_k``/``attn_v`` are (n_shared_calls, b,
+S, kv, hd), beside the SSM family's state and conv caches.
 
 The shared block is one set of weights (unstacked ``shared_*`` leaves), so
 its gradient is the sum over its calls; each call is recomputed in the
@@ -83,9 +87,58 @@ def forward(params: dict, cfg: ModelConfig, tokens):
                        TORCH_DTYPES[cfg.compute_dtype])
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = backbone(x, params, cfg, positions)
-    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return L.lm_logits(x, params["unembed"])
+    return T.final_logits(x, params, cfg)
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
     return L.xent_loss(forward(params, cfg, batch["tokens"]), batch["labels"])
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    specs = M.cache_specs(cfg, batch, max_seq)
+    kv, hd, nsh = cfg.num_kv_heads, cfg.head_dim, n_shared_calls(cfg)
+    shape = (nsh, batch, max_seq, kv, hd)
+    logical = (None, "batch", "kv_seq", None, None)
+    specs["attn_k"] = ParamSpec(shape, logical, init="zeros",
+                                dtype=cfg.compute_dtype)
+    specs["attn_v"] = ParamSpec(shape, logical, init="zeros",
+                                dtype=cfg.compute_dtype)
+    return specs
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int):
+    b, s = tokens.shape
+    x = L.embed_tokens(params["embed"], tokens,
+                       TORCH_DTYPES[cfg.compute_dtype])
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    layers = T.layers_of(_ssm_stacked(params))
+    shared = _shared_lp(params)
+    entries, ks, vs = [], [], []
+    for (s0, s1, attn_after) in segments(cfg):
+        x, seg = M.prefill_layers(x, layers[s0:s1], cfg)
+        entries += seg
+        if attn_after:
+            x, (k, v) = T.dense_block(x, shared, cfg, positions,
+                                      prefill=True)
+            ks.append(k)
+            vs.append(v)
+    cache = M.ssm_cache(entries, s)
+    cache["attn_k"] = T.stack_padded(ks, max_seq)
+    cache["attn_v"] = T.stack_padded(vs, max_seq)
+    return cache, T.final_logits(x[:, -1:], params, cfg)
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, token):
+    x = L.embed_tokens(params["embed"], token,
+                       TORCH_DTYPES[cfg.compute_dtype])
+    layers = T.layers_of(_ssm_stacked(params))
+    shared = _shared_lp(params)
+    pos = cache["length"]
+    call = 0
+    for (s0, s1, attn_after) in segments(cfg):
+        x = M.decode_layers(x, layers[s0:s1], cache, s0, cfg)
+        if attn_after:
+            x = T.decode_block(x, shared, cache["attn_k"][call],
+                               cache["attn_v"][call], pos, cfg)
+            call += 1
+    return T.final_logits(x, params, cfg), dict(cache, length=pos + 1)

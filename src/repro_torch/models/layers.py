@@ -1,5 +1,6 @@
-"""Shared layers of every family, the port of ``repro.models.layers``'
-training path: norms, RoPE, attention, MLPs, embedding, logits and loss.
+"""Shared layers of every family, the port of ``repro.models.layers``:
+norms, RoPE, attention (training, prefill and decode), MLPs, embedding,
+logits and loss.
 
 Matmuls run in the config's compute dtype with f32 softmax and norm
 statistics. Weights keep the JAX package's (d_in, d_out) layout, so a layer
@@ -83,6 +84,37 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
                                          ctx.causal)
         return dq, dk, dv, None
+
+
+def attention_prefill(q, k, v, causal: bool):
+    """Prefill attention: the flash kernel's forward ``o`` alone (no lse
+    kept, nothing saved for a backward). The port's one counterpart of the
+    reference's ``attention_qchunk`` and ``attention_tri``, which compute
+    the same function (top-left causal or no mask). q: (b, sq, h, d);
+    k, v: (b, skv, kv, d), kv dividing h."""
+    o, _ = ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal)
+    return o
+
+
+def attention_decode(q, k_cache, v_cache, length=None):
+    """One query position against a cache, in plain PyTorch (the reference
+    computes it outside any kernel too). q: (b, 1, h, d); caches:
+    (b, S, kv, d) with kv dividing h, contracted per kv head's group of
+    query heads (the function of expanding them first). Scores and softmax
+    in f32; positions at or past ``length`` (a host int) masked with _NEG;
+    the probabilities cast to the cache's dtype before ``p @ v``, which
+    accumulates in f32."""
+    b, _, h, d = q.shape
+    S, kv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, kv, h // kv, d).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * (1.0 / math.sqrt(d))
+    if length is not None:
+        keep = torch.arange(S, device=q.device) < length
+        s = s.masked_fill(~keep, _NEG)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bkgs,bskd->bkgd", p.float(), v_cache.float())
+    return o.reshape(b, 1, h, d).to(q.dtype)
 
 
 def attn_project_qkv(x, lp, cfg, positions):

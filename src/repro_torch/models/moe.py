@@ -1,5 +1,6 @@
 """Mixture-of-Experts family (dbrx: 16e top-4; arctic: 128e top-2 + dense
-residual), the port of ``repro.models.moe``'s training path.
+residual), the port of ``repro.models.moe``: training, prefill and decode
+(the cache is the dense family's).
 
 Capacity routing as the JAX package computes it on one data shard (one
 token group, G = 1; G > 1 comes with the mesh): each token's top-k experts
@@ -99,13 +100,20 @@ def moe_ffn(x, lp: dict, cfg: ModelConfig):
     return y.reshape(b, s, d), aux
 
 
-def moe_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True):
-    x = T.attn_block(x, lp, cfg, positions, causal=causal)
+def moe_mlp(x, lp: dict, cfg: ModelConfig):
+    """The FFN half of a MoE block with its pre-norm and residual: the
+    routed experts, plus the dense SwiGLU beside them where
+    ``cfg.dense_residual`` (arctic). Returns (x, aux)."""
     xn = L.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     y, aux = moe_ffn(xn, lp, cfg)
     if cfg.dense_residual:
         y = y + L.mlp_swiglu(xn, lp)
     return x + y, aux
+
+
+def moe_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True):
+    return moe_mlp(T.attn_block(x, lp, cfg, positions, causal=causal), lp,
+                   cfg)
 
 
 def _stacked(params: dict, cfg: ModelConfig) -> dict:
@@ -128,11 +136,42 @@ def forward(params: dict, cfg: ModelConfig, tokens):
     aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = T.run_layers((x, aux0), _stacked(params, cfg), one_layer,
                           cfg.remat)
-    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return L.lm_logits(x, params["unembed"]), aux / cfg.num_layers
+    return T.final_logits(x, params, cfg), aux / cfg.num_layers
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
             aux_weight: float = AUX_WEIGHT):
     logits, aux = forward(params, cfg, batch["tokens"])
     return L.xent_loss(logits, batch["labels"]) + aux_weight * aux
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    return T.cache_specs(cfg, batch, max_seq)
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int):
+    cd = TORCH_DTYPES[cfg.compute_dtype]
+    b, s = tokens.shape
+    x = L.embed_tokens(params["embed"], tokens, cd)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    ks, vs = [], []
+    for lp in T.layers_of(_stacked(params, cfg)):
+        x, (k, v) = T.attn_block(x, lp, cfg, positions, prefill=True)
+        x, _ = moe_mlp(x, lp, cfg)
+        ks.append(k)
+        vs.append(v)
+    cache = {"k": T.stack_padded(ks, max_seq),
+             "v": T.stack_padded(vs, max_seq), "length": s}
+    return cache, T.final_logits(x[:, -1:], params, cfg)
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, token):
+    """One token for each of the b rows: the experts route b tokens, so
+    their capacity is ``capacity(cfg, b)`` (at least 4)."""
+    pos = cache["length"]
+    x = L.embed_tokens(params["embed"], token,
+                       TORCH_DTYPES[cfg.compute_dtype])
+    for i, lp in enumerate(T.layers_of(_stacked(params, cfg))):
+        x = T.decode_attn(x, lp, cache["k"][i], cache["v"][i], pos, cfg)
+        x, _ = moe_mlp(x, lp, cfg)
+    return T.final_logits(x, params, cfg), dict(cache, length=pos + 1)

@@ -1,10 +1,22 @@
-"""Family registry, the port of ``repro.models.registry``'s training half
-(param specs, counts, init and loss of all seven families)."""
+"""Family registry, the port of ``repro.models.registry``: param specs,
+counts, init and loss of all seven families, and the serving entry points
+(cache specs, an empty cache, prefill and decode) of the six that serve.
+
+Prefill and decode run under ``torch.inference_mode``. ``vit`` has no
+serving path, as in the JAX package: asking it for one raises
+``AttributeError``, as the reference's missing functions do. The
+``ShapeDtypeStruct`` stand-ins (``abstract_cache``, ``input_specs``) are
+the JAX package's dry run's and have no counterpart here.
+"""
 from __future__ import annotations
 
 import importlib
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.buckets import TORCH_DTYPES
+from repro_torch.device import resolve
 from repro_torch.models import common
 
 _FAMILIES = {
@@ -38,3 +50,40 @@ def init_params(cfg: ModelConfig, seed: int, device) -> dict:
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
     return family_module(cfg).loss_fn(params, cfg, batch)
+
+
+def _serving(cfg: ModelConfig, name: str):
+    fn = getattr(family_module(cfg), name, None)
+    if fn is None:
+        raise AttributeError(f"family {cfg.family!r} has no {name} (no "
+                             f"serving path, as in the JAX package)")
+    return fn
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    return _serving(cfg, "cache_specs")(cfg, batch, max_seq)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device=None) -> dict:
+    """An empty cache: every leaf zero, ``length`` 0."""
+    device = resolve(device)
+    cache = {name: torch.zeros(spec.shape, dtype=TORCH_DTYPES[spec.dtype],
+                               device=device)
+             for name, spec in cache_specs(cfg, batch, max_seq).items()}
+    cache["length"] = 0
+    return cache
+
+
+@torch.inference_mode()
+def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int, **extra):
+    """(cache, logits of the last position (b, 1, vocab)); ``extra`` is
+    ``frames`` (audio) or ``patch_embeds`` (vlm)."""
+    return _serving(cfg, "prefill")(params, cfg, tokens, max_seq, **extra)
+
+
+@torch.inference_mode()
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, token):
+    """(logits (b, 1, vocab), cache advanced by one position); the cache's
+    tensors are updated in place."""
+    return _serving(cfg, "decode_step")(params, cfg, cache, token)

@@ -1,9 +1,12 @@
 """Mamba2 / SSD (state-space duality) blocks, the attention-free LM family:
-the port of ``repro.models.ssm``'s training path.
+the port of ``repro.models.ssm`` (training, prefill and decode).
 
 The chunked SSD algorithm (arXiv:2405.21060): a quadratic path inside each
 chunk, and a linear recurrence over the chunks' states. The short causal
-conv on x, B and C is depthwise, as unrolled taps.
+conv on x, B and C is depthwise, as unrolled taps. Decode is one step of
+the recurrence per token against a cache of each layer's SSD state (f32)
+and the last ``ssm_conv - 1`` inputs of each conv (compute dtype),
+updated in place.
 
 One departure from the reference: ``ssd_chunked`` masks the intra-chunk
 decay exponent *before* the exponential. The reference takes
@@ -77,6 +80,14 @@ def causal_conv(x, kernel):
     return out
 
 
+def conv_step(x_t, conv_cache, kernel):
+    """x_t: (b, c); conv_cache: (b, w-1, c) holding the last w-1 inputs.
+    Returns (y_t, the cache shifted by one with x_t last)."""
+    hist = torch.cat([conv_cache, x_t[:, None]], dim=1)          # (b, w, c)
+    y = torch.einsum("bwc,wc->bc", hist, kernel)
+    return y, hist[:, 1:]
+
+
 def ssd_chunked(x, dt, A, B, C, chunk: int):
     """Chunked SSD scan.
 
@@ -129,33 +140,84 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return y.to(x.dtype), S
 
 
-def mamba_block(x, lp: dict, cfg: ModelConfig):
-    """Full-sequence block. x: (b, s, d) -> (b, s, d)."""
+def ssd_decode_step(x_t, dt_t, A, B_t, C_t, S):
+    """One recurrence step. x_t: (b, h, p); dt_t: (b, h) f32; A: (h,) f32;
+    B_t, C_t: (b, n); S: (b, h, n, p) f32 -> (y_t in x_t's dtype, S').
+    Products in f32, as the reference's mixed-dtype einsums promote."""
+    dA = torch.exp(dt_t * A)                                     # (b, h)
+    dBx = torch.einsum("bn,bh,bhp->bhnp", B_t.float(), dt_t, x_t.float())
+    S = S * dA[..., None, None] + dBx
+    y = torch.einsum("bn,bhnp->bhp", C_t.float(), S)
+    return y.to(x_t.dtype), S
+
+
+def _softplus(dt, bias):
+    """``jax.nn.softplus(dt + bias)`` in f32: logaddexp(x, 0), with no
+    threshold (the bias stays f32, as the reference adds it)."""
+    dt = dt.float() + bias.float()
+    return torch.logaddexp(dt, torch.zeros_like(dt))
+
+
+def _gate_out(x, y, z, lp: dict, cfg: ModelConfig):
+    """The gated norm and the out-projection with the residual."""
+    cd = x.dtype
+    y = L.rmsnorm(y * F.silu(z.float()).to(cd), lp["gate_norm"],
+                  cfg.norm_eps)
+    return x + y @ lp["w_out"].to(cd)
+
+
+def mamba_block(x, lp: dict, cfg: ModelConfig, *, prefill=False):
+    """Full-sequence block. x: (b, s, d) -> (b, s, d); with ``prefill``
+    also the layer's cache entries: (x, (final SSD state, the last w-1
+    rows of the pre-conv x, B and C projections))."""
     b, s, d = x.shape
     h, p = cfg.ssm_heads, cfg.ssm_head_dim
     cd = x.dtype
     xn = L.rmsnorm(x, lp["ssm_norm"], cfg.norm_eps)
     z = xn @ lp["wz"].to(cd)
+    xi0 = xn @ lp["wx"].to(cd)
+    Bp0 = xn @ lp["wB"].to(cd)
+    Cp0 = xn @ lp["wC"].to(cd)
+    dt = xn @ lp["wdt"].to(cd)
+    xi = F.silu(causal_conv(xi0, lp["conv_x"].to(cd)).float()).to(cd)
+    Bp = F.silu(causal_conv(Bp0, lp["conv_B"].to(cd)).float()).to(cd)
+    Cp = F.silu(causal_conv(Cp0, lp["conv_C"].to(cd)).float()).to(cd)
+    dt = _softplus(dt, lp["dt_bias"])
+    A = -torch.exp(lp["A_log"].float())
+    y, S = ssd_chunked(xi.reshape(b, s, h, p), dt, A, Bp, Cp, cfg.ssm_chunk)
+    y = y + xi.reshape(b, s, h, p) * lp["D"].to(cd)[:, None]
+    out = _gate_out(x, y.reshape(b, s, -1), z, lp, cfg)
+    if not prefill:
+        return out
+    w = cfg.ssm_conv
+    return out, (S, xi0[:, -(w - 1):], Bp0[:, -(w - 1):], Cp0[:, -(w - 1):])
+
+
+def mamba_decode_block(x, lp: dict, state, conv_cache: dict,
+                       cfg: ModelConfig):
+    """x: (b, 1, d); state: (b, h, n, p); conv_cache: {"x", "B", "C"}
+    each (b, w-1, c). Returns (x', state', conv caches')."""
+    b = x.shape[0]
+    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    cd = x.dtype
+    xn = L.rmsnorm(x, lp["ssm_norm"], cfg.norm_eps)[:, 0]        # (b, d)
+    z = xn @ lp["wz"].to(cd)
     xi = xn @ lp["wx"].to(cd)
     Bp = xn @ lp["wB"].to(cd)
     Cp = xn @ lp["wC"].to(cd)
     dt = xn @ lp["wdt"].to(cd)
-    xi = causal_conv(xi, lp["conv_x"].to(cd))
-    Bp = causal_conv(Bp, lp["conv_B"].to(cd))
-    Cp = causal_conv(Cp, lp["conv_C"].to(cd))
+    xi, cx = conv_step(xi, conv_cache["x"], lp["conv_x"].to(cd))
+    Bp, cB = conv_step(Bp, conv_cache["B"], lp["conv_B"].to(cd))
+    Cp, cC = conv_step(Cp, conv_cache["C"], lp["conv_C"].to(cd))
     xi = F.silu(xi.float()).to(cd)
     Bp = F.silu(Bp.float()).to(cd)
     Cp = F.silu(Cp.float()).to(cd)
-    # jax.nn.softplus is logaddexp(x, 0), with no threshold
-    dt = dt.float() + lp["dt_bias"].float()
-    dt = torch.logaddexp(dt, torch.zeros_like(dt))
+    dt = _softplus(dt, lp["dt_bias"])
     A = -torch.exp(lp["A_log"].float())
-    y, _ = ssd_chunked(xi.reshape(b, s, h, p), dt, A, Bp, Cp, cfg.ssm_chunk)
-    y = y + xi.reshape(b, s, h, p) * lp["D"].to(cd)[:, None]
-    y = y.reshape(b, s, -1)
-    y = L.rmsnorm(y * F.silu(z.float()).to(cd), lp["gate_norm"],
-                  cfg.norm_eps)
-    return x + y @ lp["w_out"].to(cd)
+    y, state = ssd_decode_step(xi.reshape(b, h, p), dt, A, Bp, Cp, state)
+    y = y + xi.reshape(b, h, p) * lp["D"].to(cd)[:, None]
+    out = _gate_out(x, y.reshape(b, 1, -1), z[:, None], lp, cfg)
+    return out, state, {"x": cx, "B": cB, "C": cC}
 
 
 def _stacked(params: dict) -> dict:
@@ -167,9 +229,81 @@ def forward(params: dict, cfg: ModelConfig, tokens):
                        TORCH_DTYPES[cfg.compute_dtype])
     x = T.run_layers(x, _stacked(params),
                      lambda x, lp: mamba_block(x, lp, cfg), cfg.remat)
-    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return L.lm_logits(x, params["unembed"])
+    return T.final_logits(x, params, cfg)
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
     return L.xent_loss(forward(params, cfg, batch["tokens"]), batch["labels"])
+
+
+CONV_KEYS = (("conv_x", "x"), ("conv_B", "B"), ("conv_C", "C"))
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    din, gn, w = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_conv
+    lgl = ("layers", "batch", None, "ssm_inner")
+    return {
+        "state": ParamSpec((cfg.num_layers, batch, h, n, p),
+                           ("layers", "batch", "ssm_inner", None, None),
+                           init="zeros"),
+        "conv_x": ParamSpec((cfg.num_layers, batch, w - 1, din), lgl,
+                            init="zeros", dtype=cfg.compute_dtype),
+        "conv_B": ParamSpec((cfg.num_layers, batch, w - 1, gn),
+                            ("layers", "batch", None, None),
+                            init="zeros", dtype=cfg.compute_dtype),
+        "conv_C": ParamSpec((cfg.num_layers, batch, w - 1, gn),
+                            ("layers", "batch", None, None),
+                            init="zeros", dtype=cfg.compute_dtype),
+    }
+
+
+def prefill_layers(x, layers: list, cfg: ModelConfig):
+    """Mamba layers over the prompt, each keeping its cache entries:
+    (x, [per layer (state, conv_x tail, conv_B tail, conv_C tail)])."""
+    entries = []
+    for lp in layers:
+        x, entry = mamba_block(x, lp, cfg, prefill=True)
+        entries.append(entry)
+    return x, entries
+
+
+def ssm_cache(entries: list, length: int) -> dict:
+    """The cache dict from per-layer entries, stacked on a layer axis."""
+    names = ("state",) + tuple(name for name, _ in CONV_KEYS)
+    cache = {name: torch.stack([e[i] for e in entries])
+             for i, name in enumerate(names)}
+    cache["length"] = length
+    return cache
+
+
+def decode_layers(x, layers: list, cache: dict, first: int, cfg):
+    """Mamba decode through ``layers``, the cache's layers ``first`` on;
+    each layer's state and conv caches are written back in place."""
+    for j, lp in enumerate(layers):
+        i = first + j
+        conv = {c: cache[name][i] for name, c in CONV_KEYS}
+        x, S, conv = mamba_decode_block(x, lp, cache["state"][i], conv, cfg)
+        cache["state"][i] = S
+        for name, c in CONV_KEYS:
+            cache[name][i] = conv[c]
+    return x
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int):
+    """Run the prompt through SSD, keeping each layer's final state and
+    conv tails (the state does not grow with ``max_seq``)."""
+    del max_seq
+    x = L.embed_tokens(params["embed"], tokens,
+                       TORCH_DTYPES[cfg.compute_dtype])
+    x, entries = prefill_layers(x, T.layers_of(_stacked(params)), cfg)
+    return (ssm_cache(entries, tokens.shape[1]),
+            T.final_logits(x[:, -1:], params, cfg))
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, token):
+    x = L.embed_tokens(params["embed"], token,
+                       TORCH_DTYPES[cfg.compute_dtype])
+    x = decode_layers(x, T.layers_of(_stacked(params)), cache, 0, cfg)
+    return (T.final_logits(x, params, cfg),
+            dict(cache, length=cache["length"] + 1))

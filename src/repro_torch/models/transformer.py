@@ -1,11 +1,19 @@
 """Dense decoder-only LM (llama/glm/granite/tinyllama family), the port of
-``repro.models.transformer``'s training path, and the attention block and
-layer stack every other family with attention builds on.
+``repro.models.transformer``: the training forward, prefill and
+single-token decode against a KV cache, and the attention block, decode
+block and layer stack every other family with attention builds on.
 
 Per-layer weights are stacked ``(L, ...)`` leaves under the JAX package's
 names, so the two packages' bucket layouts are equal. The forward loops
 over the layers; with ``cfg.remat`` each layer is recomputed in the
 backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does there.
+
+Serving takes the f32 params as the reference's does and casts at each
+use. A cache is a dict of tensors and ``length``, a host int: the number
+of positions written, so writing at ``pos`` and masking cost no device
+sync. ``decode_step`` writes the new position into the cache's tensors in
+place (the reference's serving loop donates its cache) and returns the
+dict with ``length`` advanced.
 """
 from __future__ import annotations
 
@@ -59,21 +67,63 @@ def param_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def attn_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True):
+def attn_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True,
+               prefill=False):
     """Pre-norm attention with its residual: the flash kernel forward
-    (top-left causal or none) and the recompute-from-lse backward."""
+    (top-left causal or none) and the recompute-from-lse backward. With
+    ``prefill`` the forward alone, returning ``(x, (k, v))`` with k, v at
+    the kv heads (the cache's entries)."""
     b, s, _ = x.shape
     xn = L.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = L.attn_project_qkv(xn, lp, cfg, positions)
-    o = L.FlashAttention.apply(q, k, v, causal).reshape(b, s, -1)
-    return x + o @ lp["wo"].to(o.dtype)
+    if prefill:
+        o = L.attention_prefill(q, k, v, causal)
+    else:
+        o = L.FlashAttention.apply(q, k, v, causal)
+    x = x + o.reshape(b, s, -1) @ lp["wo"].to(o.dtype)
+    return (x, (k, v)) if prefill else x
 
 
-def dense_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True):
-    """Attention + MLP (``cfg.mlp``) with pre-norms and residuals."""
-    x = attn_block(x, lp, cfg, positions, causal=causal)
+def dense_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True,
+                prefill=False):
+    """Attention + MLP (``cfg.mlp``) with pre-norms and residuals; with
+    ``prefill``, ``(x, (k, v))`` as ``attn_block`` gives them."""
+    out = attn_block(x, lp, cfg, positions, causal=causal, prefill=prefill)
+    x, kv = out if prefill else (out, None)
+    xn = L.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    x = x + L.mlp(xn, lp, cfg)
+    return (x, kv) if prefill else x
+
+
+def decode_attn(x, lp: dict, kc, vc, pos: int, cfg: ModelConfig):
+    """The attention half of a decode block: x (b, 1, d) at position
+    ``pos``; its k, v are written into one layer's caches kc, vc (b, S, kv,
+    hd) at ``pos`` in place, and it attends over positions < pos + 1."""
+    b = x.shape[0]
+    xn = L.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    positions = torch.full((b, 1), pos, device=x.device)
+    q, k, v = L.attn_project_qkv(xn, lp, cfg, positions)
+    kc[:, pos] = k[:, 0]
+    vc[:, pos] = v[:, 0]
+    o = L.attention_decode(q, kc, vc, length=pos + 1)
+    return x + o.reshape(b, 1, -1) @ lp["wo"].to(o.dtype)
+
+
+def decode_block(x, lp: dict, kc, vc, pos: int, cfg: ModelConfig):
+    """Single-token dense block against one layer's KV cache (written in
+    place). x: (b, 1, d) -> (b, 1, d)."""
+    x = decode_attn(x, lp, kc, vc, pos, cfg)
     xn = L.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     return x + L.mlp(xn, lp, cfg)
+
+
+def layers_of(stacked: dict) -> list:
+    """Each layer's slice of the stacked leaves, as a dict per layer. The
+    leaves are unbound once, so the backward stacks the per-layer grads in
+    one pass."""
+    keys = list(stacked)
+    per_layer = [stacked[k].unbind(0) for k in keys]
+    return [dict(zip(keys, ws)) for ws in zip(*per_layer)]
 
 
 def run_layers(x, stacked: dict, body, remat: bool):
@@ -81,18 +131,15 @@ def run_layers(x, stacked: dict, body, remat: bool):
     leaves (a scan over their leading axis), recomputed in the backward
     when ``remat`` (one ``jax.checkpoint``-ed scan step each)."""
     keys = list(stacked)
-    # unbind once: its backward stacks the per-layer grads in one pass
-    per_layer = {k: stacked[k].unbind(0) for k in keys}
 
     def one_layer(x, *ws):
         return body(x, dict(zip(keys, ws)))
 
-    for i in range(len(per_layer[keys[0]])):
-        ws = [per_layer[k][i] for k in keys]
+    for lp in layers_of(stacked):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(one_layer, x, *ws, use_reentrant=False)
+            x = checkpoint(one_layer, x, *lp.values(), use_reentrant=False)
         else:
-            x = one_layer(x, *ws)
+            x = body(x, lp)
     return x
 
 
@@ -108,17 +155,86 @@ def decoder_stack(x, params: dict, cfg: ModelConfig, positions, *,
         cfg.remat)
 
 
-def forward(params: dict, cfg: ModelConfig, tokens):
-    b, s = tokens.shape
-    x = L.embed_tokens(params["embed"], tokens,
-                       TORCH_DTYPES[cfg.compute_dtype])
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = decoder_stack(x, params, cfg, positions)
+def final_logits(x, params: dict, cfg: ModelConfig):
+    """The final norm and the logits (through the tied embedding where
+    ``cfg.tie_embeddings``)."""
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     unembed = (params["embed"].T if cfg.tie_embeddings
                else params["unembed"])
     return L.lm_logits(x, unembed)
 
 
+def forward(params: dict, cfg: ModelConfig, tokens):
+    b, s = tokens.shape
+    x = L.embed_tokens(params["embed"], tokens,
+                       TORCH_DTYPES[cfg.compute_dtype])
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = decoder_stack(x, params, cfg, positions)
+    return final_logits(x, params, cfg)
+
+
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
     return L.xent_loss(forward(params, cfg, batch["tokens"]), batch["labels"])
+
+
+# -- KV cache ----------------------------------------------------------------
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    shape = (cfg.num_layers, batch, max_seq, kv, hd)
+    logical = ("layers", "batch", "kv_seq", None, None)
+    return {
+        "k": ParamSpec(shape, logical, init="zeros", dtype=cfg.compute_dtype),
+        "v": ParamSpec(shape, logical, init="zeros", dtype=cfg.compute_dtype),
+    }
+
+
+def stack_padded(ts: list, max_seq: int):
+    """Per-call (b, s, ...) tensors stacked along a new leading axis and
+    zero-padded to ``max_seq`` positions: (n, b, max_seq, ...). Raises
+    ``ValueError`` when ``max_seq < s``, as the reference's ``jnp.pad``
+    does on the negative pad."""
+    b, s = ts[0].shape[:2]
+    if max_seq < s:
+        raise ValueError(f"max_seq {max_seq} is shorter than the prompt's "
+                         f"{s} positions")
+    out = ts[0].new_zeros((len(ts), b, max_seq) + tuple(ts[0].shape[2:]))
+    for i, t in enumerate(ts):
+        out[i, :, :s] = t
+    return out
+
+
+def prefill_embedded(x, params: dict, cfg: ModelConfig, max_seq: int):
+    """The prefill of the dense stack from its input embeddings x (b, s,
+    d): (cache, logits of the last position (b, 1, vocab))."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    stacked = {k: params[k] for k in LAYER_KEYS if k in params}
+    ks, vs = [], []
+    for lp in layers_of(stacked):
+        x, (k, v) = dense_block(x, lp, cfg, positions, prefill=True)
+        ks.append(k)
+        vs.append(v)
+    cache = {"k": stack_padded(ks, max_seq), "v": stack_padded(vs, max_seq),
+             "length": s}
+    return cache, final_logits(x[:, -1:], params, cfg)
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int):
+    """Run the full prompt; returns (cache with per-layer k/v padded to
+    ``max_seq``, logits of the last position)."""
+    x = L.embed_tokens(params["embed"], tokens,
+                       TORCH_DTYPES[cfg.compute_dtype])
+    return prefill_embedded(x, params, cfg, max_seq)
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, token):
+    """token: (b, 1) integer; cache: {"k", "v", "length"}. One new token:
+    (logits (b, 1, vocab), the cache with ``length`` + 1)."""
+    pos = cache["length"]
+    x = L.embed_tokens(params["embed"], token,
+                       TORCH_DTYPES[cfg.compute_dtype])
+    stacked = {k: params[k] for k in LAYER_KEYS if k in params}
+    for i, lp in enumerate(layers_of(stacked)):
+        x = decode_block(x, lp, cache["k"][i], cache["v"][i], pos, cfg)
+    return final_logits(x, params, cfg), dict(cache, length=pos + 1)

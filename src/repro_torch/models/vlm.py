@@ -1,10 +1,11 @@
-"""llava-next-style VLM, the port of ``repro.models.vlm``'s training path:
-a stubbed vision frontend and the dense LM backbone.
+"""llava-next-style VLM, the port of ``repro.models.vlm``: a stubbed
+vision frontend and the dense LM backbone; training, prefill and decode.
 
 The batch carries precomputed, projected patch embeddings (batch,
 num_patches, d_model); they are prepended to the token embeddings, the
 causal LM runs over the combined sequence, and the loss is taken on the
-text positions only.
+text positions only. In serving the patches sit before the prompt in the
+cache, which then holds ``num_patches + s_text`` positions after prefill.
 """
 from __future__ import annotations
 
@@ -20,12 +21,16 @@ def param_specs(cfg: ModelConfig) -> dict:
     return T.param_specs(cfg)
 
 
-def forward(params: dict, cfg: ModelConfig, tokens, patch_embeds):
+def _embed(params: dict, cfg: ModelConfig, tokens, patch_embeds):
     cd = TORCH_DTYPES[cfg.compute_dtype]
+    tok = L.embed_tokens(params["embed"], tokens, cd)
+    return torch.cat([patch_embeds.to(cd), tok], dim=1)
+
+
+def forward(params: dict, cfg: ModelConfig, tokens, patch_embeds):
     b, s_text = tokens.shape
     p = patch_embeds.shape[1]
-    tok = L.embed_tokens(params["embed"], tokens, cd)
-    x = torch.cat([patch_embeds.to(cd), tok], dim=1)
+    x = _embed(params, cfg, tokens, patch_embeds)
     s = p + s_text
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = T.decoder_stack(x, params, cfg, positions)
@@ -38,3 +43,19 @@ def forward(params: dict, cfg: ModelConfig, tokens, patch_embeds):
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
     logits = forward(params, cfg, batch["tokens"], batch["patch_embeds"])
     return L.xent_loss(logits, batch["labels"])
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    return T.cache_specs(cfg, batch, max_seq)
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int,
+            patch_embeds=None):
+    """Patches, then the prompt. Raises ``ValueError`` when ``max_seq``
+    is shorter than ``num_patches + s_text``, as the reference does."""
+    return T.prefill_embedded(_embed(params, cfg, tokens, patch_embeds),
+                              params, cfg, max_seq)
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, token):
+    return T.decode_step(params, cfg, cache, token)

@@ -1,7 +1,10 @@
-"""Train step, the port of ``repro.train.step.build_train_step``: microbatch
-gradient accumulation, the captured gradients returned as an output (the
-Checkmate capture point), and the optimizer update as one fused AdamW
-launch per leaf — the kernel the shadow runs per bucket.
+"""Train, prefill and decode steps, the port of ``repro.train.step``.
+
+``build_train_step``: microbatch gradient accumulation, the captured
+gradients returned as an output (the Checkmate capture point), and the
+optimizer update as one fused AdamW launch per leaf — the kernel the
+shadow runs per bucket. ``build_prefill_step`` and ``build_decode_step``:
+the serving steps, greedy.
 """
 from __future__ import annotations
 
@@ -9,7 +12,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.buckets import TORCH_DTYPES
 from repro_torch.device import resolve
 from repro_torch.models import registry
@@ -75,3 +78,47 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
         return state, metrics, grads
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+# leaves serving reads in f32 (norm weights, and the SSM's dt_bias and
+# A_log); every other leaf is cast to the compute dtype where it is used
+F32_IN_SERVING = ("norm", "dt_bias", "A_log")
+
+
+def serving_params(cfg: ModelConfig, params: dict) -> dict:
+    """The f32 params with every leaf serving casts to the compute dtype
+    at its use (matmul and embedding weights, conv kernels, D) cast once
+    here: bitwise the same results, without a cast per decode step. Norm
+    weights, dt_bias and A_log stay f32, as serving reads them."""
+    cd = TORCH_DTYPES[cfg.compute_dtype]
+    return {k: p if k.endswith(F32_IN_SERVING) else p.to(cd)
+            for k, p in params.items()}
+
+
+def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig):
+    """prefill_step(params, inputs) -> (cache, logits): inputs holds
+    ``tokens`` and, for audio and vlm, ``frames`` / ``patch_embeds``; the
+    cache is sized to ``shape.seq_len``."""
+    def prefill_step(params: dict, inputs: dict):
+        extra = {k: v for k, v in inputs.items() if k != "tokens"}
+        return registry.prefill(params, cfg, inputs["tokens"],
+                                shape.seq_len, **extra)
+    return prefill_step
+
+
+def build_decode_step(cfg: ModelConfig, greedy: bool = True):
+    """serve_step(params, cache, token) -> (next token (b, 1) int64,
+    cache): the argmax of the last position's logits (the first maximum,
+    as ``jnp.argmax``)."""
+    if not greedy:
+        raise ValueError("only greedy decode is ported (the JAX package's "
+                         "decode step is greedy too)")
+
+    def serve_step(params: dict, cache: dict, token):
+        logits, cache = registry.decode_step(params, cfg, cache, token)
+        return torch.argmax(logits[:, -1], dim=-1)[:, None], cache
+    return serve_step
