@@ -9,8 +9,8 @@ Phases, in order; any failed check raises and the script exits nonzero:
 2. kernels — hold each kernel against its plain PyTorch version on the card
              (AdamW and pack bitwise, both flash kernels to a tolerance, at
              head dims from 8 to 256 in bf16 and f32, each case on the
-             kernel ``route`` names, at every shape phases 8 and 9 launch
-             (derived from their cells: whisper's 448 x 1500
+             kernel ``route`` names, at every shape phases 8, 9 and 10
+             launch (derived from their cells: whisper's 448 x 1500
              cross-attention, its encoder and decoder, the non-causal ViT,
              GQA 7:1 and 48:1, zamba2's shared block, llava), at dbrx's
              and gpt2-1.5b's shapes, and at sq > skv and at f32 sq != skv),
@@ -38,7 +38,7 @@ Phases, in order; any failed check raises and the script exits nonzero:
              packetized --topology rail-optimized`` (the gradients cross
              the simulated multicast fabric; these two at 6 layers,
              ``--layers 6``); sync; async; torch_dcp;
-             gemini; checkfreq (the last four also at ``--layers 6``). Every
+             gemini; checkfreq (the last five also at ``--layers 6``). Every
              run but none fails at step 4. Each
              stall ledger must sum bit for bit, none must book no stall,
              each Checkmate run must lose no step at the failure, each
@@ -136,13 +136,43 @@ Phases, in order; any failed check raises and the script exits nonzero:
              token (median after the first), tokens/s, and peaks; the dense
              run also times the plain ``attention_decode`` at its last
              decode shape beside its K/V byte bound.
+10. benchmarks — the paper's benchmark twins (``repro_torch.benchmarks``)
+             that touch the card, at full width: kernels (the three Hopper
+             kernels beside their plain versions at the main path's
+             shapes), multicast_overhead (Fig 10; drops 0),
+             optimizer_scaling (Fig 8: gpt3-6.7b, 2 layers, 1/2/4/8 shadow
+             nodes), stalls (Fig 2: gpt3-xl, 2 layers, 8 x 2048, 4 steps,
+             six systems), throughput (Fig 6: vit-h-14, gpt2-1.5b and
+             gpt3-xl at 2 layers, llama2-7b at 1; no checkpoint and
+             Checkmate 8 steps at each; async and gemini 3 steps and
+             CheckFreq 6 at vit-h-14),
+             shadow_timing (Fig 7, and its --json: flat against per-leaf,
+             the arctic-480b fleet plan, the sharded critical path),
+             durability_timing --json (4 layers of the tree, 2 steps) and
+             correctness (Fig 9: vit-h-14, failures at 3, 5, 8); then the
+             six examples (``repro_torch.examples``) at their own sizes
+             and steps (train_100m 120, failing at 60). Every JAX twin's
+             gate holds: Fig 9 bit-identical with 3 recoveries, every
+             Checkmate run checkpointing every step, CheckFreq
+             checkpointing less often at its tuned interval, no flush
+             stage and a bitwise restore, the sharded plan at 8 or more
+             nodes and each
+             --json timing gate, the fabric rows without drops, each
+             example's facts. Each run's flash calls match, shape by
+             shape, the count its steps predict, every shape one phase 2
+             held, the mma.sync kernel never; AdamW and the pack launched
+             as predicted where a run fixes their counts. Prints each
+             figure model's share of the bf16 peak at its measured step
+             (not gated).
 
 Output: a ``main_path`` JSON line, ``flash_d128``, ``flash_f32_d128``,
 ``flash_bf16_d80``, ``flash_prefill`` (with phase 9's dense prefill
 launches) and ``pack_host`` timing lines, a ``kernels`` JSON line,
 a ``checkpointers`` JSON line, a ``durability`` JSON line, a ``harness``
-JSON line, a ``families`` JSON line, a ``serving`` JSON line, the card's
-name and power limit, and as the last line
+JSON line, a ``families`` JSON line, a ``serving`` JSON line, a
+``benchmarks`` JSON line (each twin's CSV rows, seconds, launches and
+gates) and an ``examples`` JSON line, the card's name and power limit, and
+as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits nonzero.
 """
@@ -166,10 +196,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-H100_BYTES_PER_S = 3.35e12           # HBM3, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12             # dense tensor cores, bf16
-H100_F32_FLOPS = 67e12               # f32 outside the tensor cores
-H100_TF32_FLOPS = 495e12             # dense tensor cores, TF32
+# the H100 SXM's data-sheet peaks, from the port's roofline
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as H100_BYTES_PER_S, PEAK_BF16 as H100_BF16_FLOPS,
+    PEAK_F32 as H100_F32_FLOPS, PEAK_TF32 as H100_TF32_FLOPS)
 
 # The main path's run: global batch 8 x seq 2048 through an in-process
 # channel into a 2-node async shadow on the card. tools/profile_port.py
@@ -189,11 +219,10 @@ MEDIAN_SPANS = ("checkpoint.on_step", "channel.quantize", "channel.send",
 PACKETIZED_LAYERS = 6
 PACKETIZED = ("--channel", "packetized", "--topology", "rail-optimized",
               "--layers", str(PACKETIZED_LAYERS))
-# sync, the first copy-persist row, runs at full depth, so the pageable
-# persist path keeps a full-size run; the other four run at
-# COPY_PERSIST_LAYERS layers (full width): each of their checkpoints copies
-# the whole state through pageable host memory (40-75 s a run at full
-# depth), and phase 8 needs the time
+# the five copy-persist rows run at COPY_PERSIST_LAYERS layers (full
+# width): each of their checkpoints copies the whole state through
+# pageable host memory (40-75 s a run at full depth), and phases 8 and 10
+# need the time
 COPY_PERSIST_LAYERS = 6
 COPY_PERSIST = ("--layers", str(COPY_PERSIST_LAYERS))
 CKPT_RUNS = (
@@ -203,9 +232,8 @@ CKPT_RUNS = (
     ("checkmate", ("--shadow-async", "--max-lag-steps", "2", *PACKETIZED)),
     ("checkmate", ("--shadow-async", "--max-lag-steps", "2", *PACKETIZED,
                    "--compress")),
-    ("sync", ()),
     *((name, COPY_PERSIST)
-      for name in ("async", "torch_dcp", "gemini", "checkfreq")))
+      for name in ("sync", "async", "torch_dcp", "gemini", "checkfreq")))
 
 
 def fail(msg: str):
@@ -364,16 +392,10 @@ FLASH_EXTRA_CASES = (
 FLASH_CONFIG_CASES = (("dbrx-132b", 2048), ("gpt2-1.5b", 2048))
 
 
-def check_flash(dev) -> dict:
-    """Both flash kernels against the plain version; returns the worst
-    error in ``o`` of each kernel and input dtype, keyed "name:dtype"."""
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import route
-    gen = torch.Generator(device=dev).manual_seed(3)
-
-    def rnd(shape, dt, s=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * s).to(dt)
-
+def flash_cases() -> tuple[list, int]:
+    """Every flash case phase 2 holds, (b, sq, skv, h, kv, d, dtype,
+    causal), and how many of them are the phases' own shapes
+    (`family_flash_cases`)."""
     cases = []   # (b, s, h, kv, d, dtype, causal), sq == skv
     for b, s, h, d in ((2, 128, 2, 16), (1, 256, 4, 32), (2, 64, 2, 8),
                        (1, 64, 1, 64)):
@@ -398,7 +420,20 @@ def check_flash(dev) -> dict:
     cases = [(b, s, s, h, kv, d, dt, causal)
              for b, s, h, kv, d, dt, causal in cases]
     family = family_flash_cases()
-    cases += family
+    return cases + family, len(family)
+
+
+def check_flash(dev) -> dict:
+    """Both flash kernels against the plain version; returns the worst
+    error in ``o`` of each kernel and input dtype, keyed "name:dtype"."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import route
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(shape, dt, s=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dt)
+
+    cases, n_family = flash_cases()
     worst, ratios = {}, {}
     for case in cases:
         b, s, skv, h, kv, d, dt, causal = case
@@ -430,7 +465,7 @@ def check_flash(dev) -> dict:
                   f"{ratio:.3f} of the limit; rows past s/2: max err {late}, "
                   f"mean |o| {size}", flush=True)
     print(f"kernels: flash within tolerance on {len(cases)} cases, "
-          f"{len(family)} of them the families' shapes (sq != skv among "
+          f"{n_family} of them the families' shapes (sq != skv among "
           f"them) (o: 2e-5 f32, 1e-2*|ref| + 1e-4 bf16; lse 1e-4); "
           f"worst share of the limit {ratios}", flush=True)
     return worst
@@ -1882,9 +1917,10 @@ def attention_shapes(cfg, seq: int, batch: int = 0) -> dict:
 
 
 def family_flash_cases() -> list:
-    """Every flash shape phase 8 launches (from FAMILY_CELLS) and phase 9's
-    prefills launch (from serve_cells()), so neither can drift from what
-    phase 2 holds; then FLASH_CONFIG_CASES' and FLASH_EXTRA_CASES."""
+    """Every flash shape phase 8 launches (from FAMILY_CELLS), phase 9's
+    prefills launch (from serve_cells()) and phase 10's runs launch (from
+    benchmark_cells()), so none can drift from what phase 2 holds; then
+    FLASH_CONFIG_CASES' and FLASH_EXTRA_CASES."""
     from repro_torch import configs
     cells = [(family_cfg(label), FAMILY_CELLS[label][2], 0)
              for label in FAMILY_CELLS]
@@ -1893,6 +1929,7 @@ def family_flash_cases() -> list:
               for arch, seq in FLASH_CONFIG_CASES]
     cells += [(serve_cfg(label), prompt, b)
               for label, (_, _, b, prompt, _) in serve_cells().items()]
+    cells += benchmark_cells()
     cases = [c for cfg, seq, b in cells
              for c in attention_shapes(cfg, seq, b)]
     return list(dict.fromkeys(cases + list(FLASH_EXTRA_CASES)))
@@ -2359,6 +2396,330 @@ def phase_serving() -> dict:
             "runs": [serve_run(label) for label in serve_cells()]}
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+def _reduced(arch: str):
+    from repro_torch import configs
+    return configs.get(arch).reduced()
+
+
+def benchmark_cells() -> list:
+    """Every model phase 10 runs, as (cfg, token seq, batch per call of the
+    flash kernel): the figure twins' cells on the card and the examples'.
+    Phase 2 holds the flash kernels at each of their attention shapes."""
+    from repro_torch.benchmarks import (correctness, shadow_timing, stalls,
+                                        throughput)
+    from repro_torch.benchmarks.common import card_config
+    from repro_torch.examples import (failure_recovery, fabric_failures,
+                                      quickstart, serve_decode, train_100m)
+    cuda = torch.device("cuda")
+    train = [(card_config("gpt3-xl", stalls.CARD["layers"]),
+              stalls.CARD["batch"], stalls.CARD["seq"])]
+    train += [(card_config(a, layers), b, s)
+              for a, b, s, layers in throughput.CARD_MODELS]
+    train += shadow_timing.cells(cuda)
+    train += [(correctness.default_config(cuda), correctness.BATCH,
+               correctness.SEQ),
+              (_reduced("tinyllama-1.1b"), quickstart.BATCH, quickstart.SEQ),
+              (_reduced(failure_recovery.SCENARIO.arch),
+               failure_recovery.SCENARIO.batch,
+               failure_recovery.SCENARIO.seq),
+              (_reduced(fabric_failures.RECOVERY.arch),
+               fabric_failures.RECOVERY.batch, fabric_failures.RECOVERY.seq),
+              (train_100m.config(), train_100m.BATCH, train_100m.SEQ)]
+    cells = [(cfg, seq, batch // cfg.microbatches)
+             for cfg, batch, seq in train]
+    cells += [(_reduced(a), serve_decode.PROMPT, serve_decode.BATCH)
+              for a in serve_decode.ARCHS]
+    return cells
+
+
+def train_flash(cfg, batch: int, seq: int, steps_run: int) -> dict:
+    """The flash calls ``steps_run`` executed training steps make: forward
+    and remat recompute, per attention call and microbatch."""
+    mb = cfg.microbatches
+    return {k: 2 * n * mb * steps_run
+            for k, n in attention_shapes(cfg, seq, batch // mb).items()}
+
+
+# durability_timing --json's steps on the card (the JAX module's 6, cut for
+# the script's time limit: each raw epoch writes the whole state)
+DURABILITY_STEPS = 2
+
+
+def phase_benchmarks() -> tuple[dict, dict]:
+    """Phase 10: the paper's benchmark twins that touch the device, then
+    the six examples, on the card. Each run's flash calls are recorded by
+    shape and held against the shapes phase 2 checked and the count its
+    runs predict; AdamW and the pack against their predicted counts where
+    a run fixes them, else launched; the mma.sync flash kernel never.
+    Returns the ``benchmarks`` and ``examples`` lines."""
+    from repro_torch.benchmarks import (correctness, durability_timing,
+                                        kernels, multicast_overhead,
+                                        optimizer_scaling, shadow_timing,
+                                        stalls, throughput)
+    from repro_torch.benchmarks.common import card_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.buckets import build_buckets
+    from repro_torch.examples import (cost_planner, fabric_failures,
+                                      failure_recovery, quickstart,
+                                      serve_decode, train_100m)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import model_flops_for
+    from repro_torch.models import registry
+    held = set(flash_cases()[0])
+    flash = ops.flash_attention
+
+    def drive(label: str, fn, predict):
+        """Run ``fn()``; ``predict(result)`` gives the run's predicted
+        {shape: flash calls} and {kernel: launches} (None: at least one)."""
+        _free()
+        seen = collections.Counter()
+
+        def recording(q, k, v, causal):
+            seen[(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                  q.shape[3], q.dtype, causal)] += 1
+            return flash(q, k, v, causal)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ops.flash_attention = recording
+        try:
+            result = fn()
+        finally:
+            ops.flash_attention = flash
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        shapes, counts = predict(result)
+        check(set(seen) <= held,
+              f"benchmarks: {label} flash at shapes phase 2 did not hold: "
+              f"{set(seen) - held}")
+        check(dict(seen) == shapes,
+              f"benchmarks: {label} flash calls by shape {dict(seen)}, not "
+              f"the predicted {shapes}")
+        want = dict(counts, flash_attention_mma=0,
+                    flash_attention_wgmma=sum(shapes.values()))
+        for name, n in want.items():
+            check(launches[name] == n if n is not None else
+                  launches[name] > 0,
+                  f"benchmarks: {label} launched {name} {launches[name]} "
+                  f"times, not {'some' if n is None else n}")
+        print(f"benchmarks: {label} {secs:.1f} s, launches {launches}",
+              flush=True)
+        return result, secs, launches
+
+    def flash_of(records) -> dict:
+        total = collections.Counter()
+        for r in records:
+            cfg = card_config(r["arch"], r["layers"],
+                              microbatches=r["microbatches"])
+            total.update(train_flash(cfg, r["batch"], r["seq"],
+                                     r["steps_run"]))
+        return dict(total)
+
+    lines = {}
+
+    # kernels: each call checked once, then WARMUP + REPS timed calls
+    calls = 1 + kernels.WARMUP + kernels.REPS
+    main_layout = build_buckets(
+        [(k, tuple(sp.shape), "float32") for k, sp in sorted(
+            registry.param_specs(card_config(kernels.MAIN_ARCH)).items())])
+    pack_per_call = sum(-(-len(b.slots) // 128) for b in main_layout.buckets)
+    shape = kernels.FLASH_SHAPE
+    rows, secs, launches = drive("kernels", lambda: kernels.run("cuda"),
+                                 lambda _: ({(shape[0], shape[1], shape[1],
+                                              shape[2], shape[3], shape[4],
+                                              torch.bfloat16, True): calls},
+                                            {"fused_adamw": calls,
+                                             "bucket_pack": calls
+                                             * pack_per_call}))
+    lines["kernels"] = dict(rows=rows, seconds=secs,
+                            launches=launches)
+
+    # the channel rows' shadow runs SGD: no AdamW launch
+    rows, secs, launches = drive(
+        "multicast_overhead", lambda: multicast_overhead.run(device="cuda"),
+        lambda _: ({}, {"fused_adamw": 0, "bucket_pack": None}))
+    drops = [r for r in rows if r[0].startswith("fig10.rf")
+             and "drops=0" not in r[2]]
+    check(not drops, f"benchmarks: fabric rows with drops {drops}")
+    lines["multicast_overhead"] = dict(rows=rows, seconds=secs,
+                                       launches=launches,
+                                       gates={"fabric_drops_0": True})
+
+    # Fig 8, per node count: a warm-up delivery to every node, then each
+    # node's warm-up and REPS timed applies (2 + REPS AdamW launches a
+    # bucket); the bootstrap packs params, mu and nu and the warm-up send
+    # the gradients (4 packs of every bucket)
+    scaling_cfg = optimizer_scaling.default_config(torch.device("cuda"))
+    specs = registry.param_specs(scaling_cfg)
+    scaling_layout = build_buckets([(k, tuple(sp.shape), "float32")
+                                    for k, sp in specs.items()])
+    n_b = len(scaling_layout.buckets)
+    n_counts = len(optimizer_scaling.NODES)
+    rows, secs, launches = drive(
+        "optimizer_scaling", lambda: optimizer_scaling.run(device="cuda"),
+        lambda _: ({}, {"fused_adamw": n_counts * n_b
+                        * (2 + optimizer_scaling.REPS),
+                        "bucket_pack": n_counts * 4 * sum(
+                            -(-len(b.slots) // 128)
+                            for b in scaling_layout.buckets)}))
+    lines["optimizer_scaling"] = dict(
+        rows=rows, seconds=secs, launches=launches,
+        model=scaling_cfg.name, layers=scaling_cfg.num_layers,
+        buckets=n_b)
+
+    def model_twin(label, fn):
+        record = []
+        rows, secs, launches = drive(
+            label, lambda: fn(record),
+            lambda _: (flash_of(record), {"fused_adamw": None,
+                                          "bucket_pack": None}))
+        for r in record:
+            if r["system"] == "checkmate":
+                check(r["checkpoints"] == r["steps_run"],
+                      f"benchmarks: {label} {r['arch']} checkmate "
+                      f"checkpointed {r['checkpoints']} of "
+                      f"{r['steps_run']} steps")
+            if r["system"] == "checkfreq":
+                # past its profiled steps CheckFreq runs at the interval
+                # it tuned, so it checkpoints less often than every step
+                check(r["tuned_freq"] is not None
+                      and r["checkpoints"] < r["steps_run"],
+                      f"benchmarks: {label} {r['arch']} checkfreq tuned "
+                      f"{r['tuned_freq']}, {r['checkpoints']} checkpoints "
+                      f"in {r['steps_run']} steps")
+            check(all(math.isfinite(x) for x in r["losses"]),
+                  f"benchmarks: {label} {r['arch']} {r['system']} "
+                  f"non-finite loss")
+        lines[label] = dict(rows=rows, seconds=secs,
+                            launches=launches, runs=record,
+                            gates={"checkmate_checkpoints_every_step": True,
+                                   "checkfreq_tuned_interval": True})
+        return record
+
+    model_twin("stalls", lambda rec: stalls.run("cuda", record=rec))
+    tput = model_twin("throughput",
+                      lambda rec: throughput.run("cuda", record=rec))
+    model_twin("shadow_timing", lambda rec: shadow_timing.run("cuda",
+                                                              record=rec))
+
+    out_dir = os.path.join(ROOT, "build")
+    rc_report, secs, launches = drive(
+        "shadow_timing --json", lambda: shadow_timing.run_json(
+            os.path.join(out_dir, "BENCH_shadow.json"), device="cuda"),
+        lambda _: ({}, {"fused_adamw": None, "bucket_pack": None}))
+    rc, report = rc_report
+    check(rc == 0, f"benchmarks: shadow_timing --json gates failed: "
+                   f"{report['fails']}")
+    lines["shadow_timing_json"] = dict(report=report, seconds=secs,
+                                       launches=launches,
+                                       gates={"all": True})
+
+    rc_report, secs, launches = drive(
+        "durability_timing --json", lambda: durability_timing.run_json(
+            os.path.join(out_dir, "BENCH_durability.json"),
+            steps=DURABILITY_STEPS, device="cuda"),
+        lambda _: ({}, {"fused_adamw": None, "bucket_pack": None}))
+    rc, report = rc_report
+    check(rc == 0 and report["raw"]["restore_bitwise"],
+          f"benchmarks: durability_timing --json gates failed: "
+          f"{report['fails']}")
+    lines["durability_timing_json"] = dict(report=report, seconds=secs,
+                                           launches=launches,
+                                           gates={"all": True})
+
+    record = {}
+    rows, secs, launches = drive(
+        "correctness", lambda: correctness.run("cuda", record=record),
+        lambda _: (train_flash(correctness.default_config(
+            torch.device("cuda")), record["batch"], record["seq"],
+            record["steps_run"]), {"fused_adamw": None,
+                                   "bucket_pack": None}))
+    check(record["states_bit_identical"] and record["recoveries"] == 3,
+          f"benchmarks: correctness bit-identical "
+          f"{record['states_bit_identical']}, recoveries "
+          f"{record['recoveries']}")
+    lines["correctness"] = dict(rows=rows, seconds=secs,
+                                launches=launches, run=record,
+                                gates={"states_bit_identical": True,
+                                       "recoveries_3": True})
+
+    # the share of the bf16 peak each figure model's measured step reaches
+    # (throughput's no-checkpoint run; printed, not gated)
+    mfu = {}
+    for r in tput:
+        if r["system"] != "no_checkpoint":
+            continue
+        cfg = card_config(r["arch"], r["layers"],
+                          microbatches=r["microbatches"])
+        tokens = r["seq"] + (cfg.num_patches if cfg.family == "vlm" else 0)
+        flops = model_flops_for(cfg, ShapeConfig("card", tokens, r["batch"],
+                                                 "train"))
+        mfu[r["arch"]] = {"layers": r["layers"], "batch": r["batch"],
+                          "tokens": tokens, "step_s": r["steady_iter_s"],
+                          "model_flops": flops,
+                          "bf16_peak_share": flops / r["steady_iter_s"]
+                          / H100_BF16_FLOPS}
+    print(f"benchmarks: share of the bf16 peak (989 TFLOP/s) by figure "
+          f"model's step: {json.dumps(mfu)}", flush=True)
+    lines["bf16_peak_share"] = mfu
+
+    # -- the examples, at their own sizes ------------------------------------
+    examples = {}
+
+    def example(label, fn, predict):
+        facts, secs, launches = drive(f"example {label}", fn, predict)
+        examples[label] = dict(seconds=secs, launches=launches,
+                               facts=_jsonable(facts))
+        return facts
+
+    counts = {"fused_adamw": None, "bucket_pack": None}
+    example("quickstart", lambda: quickstart.main(["--device", "cuda"]),
+            lambda f: (train_flash(_reduced("tinyllama-1.1b"), f["batch"],
+                                   f["seq"], f["steps_run"]), counts))
+    example("failure_recovery",
+            lambda: failure_recovery.main(["--device", "cuda"]),
+            lambda f: (train_flash(_reduced(f["arch"]), f["batch"],
+                                   f["seq"], f["steps_run"]), counts))
+    example("fabric_failures",
+            lambda: fabric_failures.main(["--device", "cuda"]),
+            lambda f: (train_flash(_reduced(f["arch"]), f["batch"],
+                                   f["seq"], f["steps_run"]), counts))
+    example("cost_planner", lambda: cost_planner.main(["--device", "cuda"]),
+            lambda f: ({}, {"fused_adamw": 0, "bucket_pack": 0}))
+
+    def serve_flash(_):
+        total = collections.Counter()
+        for a in serve_decode.ARCHS:
+            total.update(attention_shapes(_reduced(a), serve_decode.PROMPT,
+                                          serve_decode.BATCH))
+        return dict(total), {"fused_adamw": 0, "bucket_pack": 0}
+    example("serve_decode", lambda: serve_decode.main(["--device", "cuda"]),
+            serve_flash)
+    facts = example(
+        "train_100m", lambda: train_100m.main(["--device", "cuda"]),
+        lambda f: (train_flash(train_100m.config(), f["batch"], f["seq"],
+                               f["steps_run"]), counts))
+    check(facts["recoveries"] == 1 and facts["shadow_bit_identical"],
+          f"examples: train_100m {facts}")
+    return lines, examples
+
+
+def _jsonable(x):
+    """``x`` with what json cannot write (dataclasses, tensors, dicts with
+    int keys) turned into plain values."""
+    if dataclasses.is_dataclass(x):
+        return _jsonable(dataclasses.asdict(x))
+    if isinstance(x, dict):
+        return {str(k): _jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    if isinstance(x, torch.Tensor):
+        return x.tolist()
+    return x
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -2400,6 +2761,8 @@ def main():
     lap("families")
     serving = phase_serving()
     lap("serving")
+    bench, examples = phase_benchmarks()
+    lap("benchmarks")
     # the flash row at the dense serving run's prefill shape: its launches
     # are that run's prefill's
     flash_extra["flash_prefill"]["launches"] = \
@@ -2422,6 +2785,8 @@ def main():
     print(json.dumps({"harness": harness}))
     print(json.dumps({"families": families}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"benchmarks": bench}))
+    print(json.dumps({"examples": examples}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

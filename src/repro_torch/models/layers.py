@@ -151,7 +151,11 @@ def mlp_swiglu(x, lp):
 
 
 def embed_tokens(embed, tokens, compute_dtype: torch.dtype):
-    return embed[tokens].to(compute_dtype)
+    # F.embedding, not embed[tokens]: on the CPU the indexing's backward
+    # accumulates repeated rows with atomic adds across threads, in an
+    # order that changes from run to run, and a replayed step must be
+    # bitwise the step it replays
+    return torch.nn.functional.embedding(tokens, embed).to(compute_dtype)
 
 
 def lm_logits(x, unembed):

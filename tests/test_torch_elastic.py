@@ -192,11 +192,14 @@ def test_durable_shadow_migrates_with_a_base_at_the_resume_step(tmp_path):
     t_old.bootstrap(_zeros(True), _zeros(True), _zeros(True), 0)
     jc = jck.CheckmateCheckpointer(j_old, channel=jch.InProcessChannel())
     tc = tck.CheckmateCheckpointer(t_old, channel=tch.InProcessChannel())
+    # drain after each step: a flush worker records the node's step when
+    # it snapshots, so an undrained epoch 1 may hold step 2 on one package
+    # and step 1 on the other; the test compares the migration, not that
     for step in (1, 2):
         jc.on_step(_event(False, step))
         tc.on_step(_event(True, step))
-    jd.drain()
-    td.drain()
+        jd.drain()
+        td.drain()
     before = _manifest(tt)
     j = jel.rebuild_shadow(j_old, ckpt, n_nodes=3, cap_bytes=256)
     t = tel.rebuild_shadow(t_old, _t(ckpt), n_nodes=3, cap_bytes=256,

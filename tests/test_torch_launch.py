@@ -1,6 +1,8 @@
 """The port's training CLI (``python -m repro_torch.launch.train``) on the
 CPU at reduced size: every checkpointer recovers from two injected
-failures, and the report has the JAX CLI's keys.
+failures, and the report has the JAX CLI's keys. And the roofline
+(``repro_torch.launch.roofline``) at the H100's peaks: the properties of
+tests/test_launch_tools.py, against the port's own constants.
 
 No numeric tolerance: the checks are counts (recoveries, checkpoints), key
 sets, and for ``--optimizer adam|sgd`` the shadow bitwise the trainer.
@@ -10,7 +12,14 @@ import sys
 
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
+import repro.configs as JC
+from repro.launch import roofline as jroof
+
+from repro_torch import configs as TC
+from repro_torch.configs.base import SHAPES
+from repro_torch.launch import roofline as troof
 from repro_torch.launch import train as launch
 from repro_torch.train.loop import TrainingFailure
 
@@ -152,3 +161,71 @@ def test_adam_and_sgd_run_through_the_driver(optimizer):
     for tree in ("params", "mu", "nu"):
         for k, t in getattr(r.state, tree).items():
             assert torch.equal(ckpt[tree][k], t), f"{tree}[{k}]"
+
+
+# -- roofline (repro_torch.launch.roofline, at the H100's peaks) ------------
+
+def _roof(flops, nbytes, coll, chips=4, model=1e9):
+    return troof.Roofline(arch="a", shape="train_4k", mesh="m", chips=chips,
+                          flops_per_device=flops, bytes_per_device=nbytes,
+                          collective_bytes_per_device=coll,
+                          model_flops=model, per_collective={})
+
+
+def test_roofline_peaks_are_the_h100s():
+    assert troof.PEAK_BF16 == 989e12
+    assert troof.HBM_BW == 3.35e12
+    assert troof.NVLINK_BW == 900e9 / 18 / 2
+
+
+def test_roofline_smoke_row():
+    r = _roof(1e12, 1e9, 1e8, chips=2, model=5e11)
+    row = r.row()
+    assert row["bound"] in ("compute", "memory", "collective")
+    assert row["step_time_s"] > 0
+    assert row["hlo_flops_total"] == 2e12
+    assert 0 < row["useful_flops_ratio"] <= 1
+    assert 0 < row["mfu_at_roofline"] <= 1
+    assert set(row) == set(jroof.Roofline(
+        arch="a", shape="s", mesh="m", chips=2, flops_per_device=1.0,
+        bytes_per_device=1.0, collective_bytes_per_device=1.0,
+        model_flops=1.0, per_collective={}).row())
+
+
+@given(st.floats(1e6, 1e15), st.floats(1e3, 1e12), st.floats(0, 1e12),
+       st.integers(1, 4096))
+@settings(max_examples=30, deadline=None)
+def test_roofline_step_time_is_binding_term(flops, nbytes, coll, chips):
+    """step_time is the max of the three terms at the port's constants,
+    `bound` names the binding one, and MFU at the roofline never exceeds
+    the useful-FLOPs ratio (equal exactly when compute-bound)."""
+    r = _roof(flops, nbytes, coll, chips=chips, model=flops * chips / 2)
+    terms = {"compute": flops / troof.PEAK_BF16,
+             "memory": nbytes / troof.HBM_BW,
+             "collective": coll / troof.NVLINK_BW}
+    assert r.step_time_s == max(terms.values())
+    assert terms[r.bound] == max(terms.values())
+    assert r.mfu <= r.useful_flops_ratio + 1e-12
+    if r.bound == "compute":
+        assert r.mfu == pytest.approx(r.useful_flops_ratio)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "dbrx-132b", "gpt3-xl",
+                                  "vit-h-14"])
+def test_model_flops_follow_6nd_2nd(arch):
+    """6ND for train, 2ND forward-only, one token per sequence for decode,
+    ACTIVE params for MoE — and the same numbers as the JAX module's."""
+    cfg = TC.get(arch)
+    n = cfg.active_param_count() if cfg.num_experts else cfg.param_count()
+    train, prefill, decode = (SHAPES["train_4k"], SHAPES["prefill_32k"],
+                              SHAPES["decode_32k"])
+    assert troof.model_flops_for(cfg, train) == \
+        6.0 * n * train.global_batch * train.seq_len
+    assert troof.model_flops_for(cfg, prefill) == \
+        2.0 * n * prefill.global_batch * prefill.seq_len
+    assert troof.model_flops_for(cfg, decode) == 2.0 * n * decode.global_batch
+    for shape in (train, prefill, decode):
+        assert troof.model_flops_for(cfg, shape) == jroof.model_flops_for(
+            JC.get(arch), JC.SHAPES[shape.name])
+    if cfg.num_experts:
+        assert cfg.active_param_count() < cfg.param_count()

@@ -131,14 +131,24 @@ def _imports(path: Path) -> set[str]:
 def test_port_imports_neither_jax_nor_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
-    # the walk reaches the harness and elastic modules too
+    # the walk reaches the harness and elastic modules too, and the
+    # benchmark and example twins, which copy what they need of the root
+    # ``benchmarks`` and ``examples`` packages
     assert {PORT / "harness" / f"{m}.py" for m in (
         "scenario", "corpus", "invariants", "runner", "__main__")} | {
-        PORT / "core" / "elastic.py"} <= set(files)
+        PORT / "core" / "elastic.py", PORT / "launch" / "roofline.py"} | {
+        PORT / "benchmarks" / f"{m}.py" for m in (
+            "common", "run", "savings", "multicast_overhead", "fabric_sweep",
+            "kernels", "optimizer_scaling", "stalls", "throughput",
+            "shadow_timing", "durability_timing", "correctness")} | {
+        PORT / "examples" / f"{m}.py" for m in (
+            "quickstart", "failure_recovery", "fabric_failures",
+            "cost_planner", "serve_decode", "train_100m")} <= set(files)
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (f, name)
+            assert top not in ("jax", "jaxlib", "repro", "benchmarks",
+                               "examples"), (f, name)
 
 
 def test_port_runs_with_jax_and_repro_unimportable():
@@ -146,11 +156,14 @@ def test_port_runs_with_jax_and_repro_unimportable():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['benchmarks'] = None\n"
+        "sys.modules['examples'] = None\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
         "import pkgutil, importlib, repro_torch, chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    repro_torch.__path__, 'repro_torch.')]\n"
-        "assert 'repro_torch.harness.runner' in names, names\n"
+        "assert {'repro_torch.harness.runner', 'repro_torch.benchmarks.run',\n"
+        "        'repro_torch.examples.train_100m'} <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "from repro_torch import configs\n"
