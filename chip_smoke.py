@@ -24,7 +24,12 @@ Phases, in order; any failed check raises and the script exits nonzero:
              2 x seq 2048, 2 steps: finite losses, the mma.sync flash kernel
              2 x layers x microbatches times a step, and the first step's
              loss within rtol 1e-4 of a forward on the CPU with the plain
-             versions. This is the f32 flash kernel's path.
+             versions. This is the f32 flash kernel's path. Last, the
+             explicit collectives on CUDA tensors over one-rank meshes
+             (the only schedule one card runs; the n > 1 schedules are
+             held on four gloo ranks by the CPU tests): the ring RS+AG
+             hands back its input as result and owned chunk, and a
+             one-stage GPipe equals its stage applied per microbatch.
 4. main    — tinyllama-1.1b at full width: train() with an in-process channel
              into a 2-node async shadow on the card, 6 steps, a failure at
              step 4; the consolidated checkpoint must equal the trainer's
@@ -82,16 +87,18 @@ Phases, in order; any failed check raises and the script exits nonzero:
              each AdamW one on an uncompressed channel ending with the
              trainer's and the shadow's checkpoints bitwise those of its
              CPU run (plain versions), each elastic drill booking
-             elastic-reshard; the four full-level scenarios the port runs
-             at tinyllama-1.1b full width, 2 layers, batch 8 x seq 2048,
+             elastic-reshard; the five full-level scenarios at
+             tinyllama-1.1b full width, 2 layers, batch 8 x seq 2048,
              bf16, the config's 4 microbatches: every invariant passes,
              the wgmma flash kernel 2 x layers x microbatches times per
              executed step of the reference and checkpointed runs, the
-             mma.sync one never, pack and AdamW launched; and
-             elastic-fsdp-flip raises NotImplementedError (the port has
-             no sharding rules yet). Each scenario's wall seconds stand
-             beside the JAX package's CPU baseline
-             (benchmarks/golden_budget.json), a yardstick only.
+             mma.sync one never, pack and AdamW launched; of them
+             elastic-fsdp-flip restores onto FSDP-flipped sharding rules
+             on the one-rank smoke mesh (train(elastic_rules=)), booking
+             elastic-reshard once, its checkpoint after the flip bitwise
+             the trainer's. Each scenario's wall seconds stand beside the
+             JAX package's CPU baseline (benchmarks/golden_budget.json), a
+             yardstick only.
 8. families — every model family's training path at full width, cut in
              depth (and arctic's experts 128 -> 8) only as far as 80 GB
              with a shadow forces: granite-34b (2 layers; gelu2, GQA
@@ -708,7 +715,44 @@ def phase_small() -> dict:
     lg, lc = reduced_card_equals_cpu(cfg, "small")
     print(f"small: reduced model at f32, 3 steps, card losses {lg} vs CPU "
           f"{lc} (rtol 1e-4)", flush=True)
-    return small_full_width()
+    launches = small_full_width()
+    one_rank_collectives(cfg)
+    return launches
+
+
+def one_rank_collectives(cfg):
+    """The ring RS+AG and GPipe on CUDA tensors over one-rank meshes (no
+    process group): the ring's n = 1 path hands back its input, at a
+    main-path leaf's shape; a one-stage pipeline at the CPU tests' GPipe
+    widths equals its stage applied to each microbatch, bit for bit; the
+    smoke mesh's rules place nothing (``shard`` is the identity)."""
+    from repro_torch.dist.collectives import ring_all_reduce_rs_ag
+    from repro_torch.dist.pipeline import make_pp_mesh, pipeline_apply
+    from repro_torch.dist.sharding import ShardingRules, make_smoke_mesh
+    from repro_torch.models import registry
+    from repro_torch.optim.sharded import zero1_shardings
+    rules = ShardingRules(make_smoke_mesh())
+    check(rules.mesh.device_type == "cuda" and rules.mesh.size == 1,
+          f"collectives: smoke mesh {rules.mesh}")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(cfg.d_ff, cfg.d_model, device="cuda", generator=gen)
+    full, owned = ring_all_reduce_rs_ag(x, rules.mesh, "data")
+    check(full is x and owned is x, "collectives: the one-rank ring did not "
+                                    "hand back its input")
+    check(rules.shard(x, "ff", "wemb") is x, "collectives: shard moved x")
+    pp = make_pp_mesh(1, 1)
+    ws = torch.randn(1, 8, 8, device="cuda", generator=gen) * 0.3
+    xs = torch.randn(6, 2, 8, device="cuda", generator=gen)
+    out = pipeline_apply(lambda w, v: torch.tanh(v @ w), ws, xs, pp)
+    ref = torch.stack([torch.tanh(v @ ws[0]) for v in xs])
+    check(out.device.type == "cuda" and torch.equal(out, ref),
+          "collectives: the one-stage pipeline differs from its stage")
+    z1 = zero1_shardings(registry.param_specs(cfg), rules)
+    check(all("data" in s for s in z1.values()),
+          f"collectives: ZeRO-1 left a leaf unplaced on the smoke mesh {z1}")
+    print(f"collectives: one-rank ring RS+AG over a {tuple(x.shape)} leaf "
+          f"and a one-stage GPipe (M 6, mb 2, d 8) on the card; ZeRO-1 "
+          f"specs for {len(z1)} leaves", flush=True)
 
 
 def reduced_card_equals_cpu(cfg, what: str) -> tuple[list, list]:
@@ -1707,8 +1751,6 @@ def phase_durability(cfg, step_ms_ref: float) -> dict:
 # microbatches, each scenario's batch and seq replaced by HARNESS_SHAPE.
 HARNESS_LAYERS = 2
 HARNESS_SHAPE = dict(batch=8, seq=2048)
-# the one golden scenario the port refuses (it needs sharding rules)
-HARNESS_REFUSED = "elastic-fsdp-flip"
 
 
 def _budget() -> dict:
@@ -1776,12 +1818,13 @@ def harness_channel(budget: dict) -> list[dict]:
 
 
 def harness_full(budget: dict) -> list[dict]:
-    """The full-level golden scenarios the port runs, at full width and
-    HARNESS_LAYERS layers on the card: every invariant passes; the wgmma
-    flash kernel launches 2 x layers x microbatches per executed step of
-    the reference and the checkpointed runs together, the mma.sync one
-    never; the pack (for Checkmate) and AdamW kernels launch. The one
-    refused scenario must raise NotImplementedError."""
+    """The full-level golden scenarios at full width and HARNESS_LAYERS
+    layers on the card: every invariant passes; the wgmma flash kernel
+    launches 2 x layers x microbatches per executed step of the reference
+    and the checkpointed runs together, the mma.sync one never; the pack
+    (for Checkmate) and AdamW kernels launch. The elastic drill books
+    elastic-reshard once and ends with the shadow's checkpoint bitwise the
+    trainer's."""
     from repro_torch import configs
     from repro_torch.harness import GOLDEN, run_scenario
     from repro_torch.kernels import ops
@@ -1789,7 +1832,7 @@ def harness_full(budget: dict) -> list[dict]:
                               num_layers=HARNESS_LAYERS)
     rows = []
     for name, sc in GOLDEN.items():
-        if sc.level != "full" or name == HARNESS_REFUSED:
+        if sc.level != "full":
             continue
         sc = dataclasses.replace(sc, **HARNESS_SHAPE)
         _free()
@@ -1815,6 +1858,19 @@ def harness_full(budget: dict) -> list[dict]:
         if sc.checkpointer == "checkmate":
             check(launches["bucket_pack"] > 0,
                   f"harness: {name} never launched bucket_pack")
+        elastic = None
+        if sc.schedule.train_node_loss:
+            stages = res.trace.checkpointer.stall_stages
+            check(list(stages).count("elastic-reshard") == 1,
+                  f"harness: {name} booked {list(stages)}")
+            check(len(res.trace.elastic_events) == 1
+                  and res.trace.elastic_events[0]["fsdp"],
+                  f"harness: {name}: {res.trace.elastic_events}")
+            check(_same_ckpt(res.trace.final_shadow, res.trace.final),
+                  f"harness: {name}: the shadow after the flip is not "
+                  f"bitwise the trainer's")
+            elastic = {"events": res.trace.elastic_events,
+                       "elastic_reshard_ms": stages["elastic-reshard"] * 1e3}
         rows.append({
             "name": name, "s": wall, "jax_cpu_baseline_s": budget.get(name),
             "batch": sc.batch, "seq": sc.seq, "layers": cfg.num_layers,
@@ -1822,22 +1878,16 @@ def harness_full(budget: dict) -> list[dict]:
             "reference_steps": len(res.trace.ref_losses),
             "recoveries": st.recoveries, "recovered_at": st.recovered_at,
             "step_ms": st.steady_iter * 1e3, "losses": st.losses,
-            "launches": launches})
+            "launches": launches, "elastic": elastic})
         print(f"harness: {name} at full width, {cfg.num_layers} layers, "
               f"batch {sc.batch} x seq {sc.seq}: pass in {wall:.1f} s, "
               f"{st.steps} steps + {len(res.trace.ref_losses)} reference, "
-              f"step {st.steady_iter * 1e3:.2f} ms, launches {launches}",
-              flush=True)
+              f"step {st.steady_iter * 1e3:.2f} ms, launches {launches}"
+              + (f", elastic-reshard "
+                 f"{elastic['elastic_reshard_ms']:.3f} ms" if elastic
+                 else ""), flush=True)
         del res
-    try:
-        run_scenario(dataclasses.replace(GOLDEN[HARNESS_REFUSED],
-                                         **HARNESS_SHAPE),
-                     device="cuda", cfg=cfg)
-        fail(f"harness: {HARNESS_REFUSED} ran; the port has no sharding "
-             f"rules to restore onto")
-    except NotImplementedError as e:
-        check("item 11" in str(e), f"harness: {HARNESS_REFUSED}: {e}")
-    check(len(rows) == 4, f"harness: {len(rows)} full-level scenarios")
+    check(len(rows) == 5, f"harness: {len(rows)} full-level scenarios")
     _free()
     return rows
 
@@ -1853,7 +1903,7 @@ def phase_harness() -> dict:
             "baseline_note": "jax_cpu_baseline_s: the JAX package's "
                              "seconds on a CPU (benchmarks/golden_budget."
                              "json), a yardstick, not a card time",
-            "channel": channel, "full": full, "refused": HARNESS_REFUSED}
+            "channel": channel, "full": full}
 
 
 # -- phase 8 -----------------------------------------------------------------

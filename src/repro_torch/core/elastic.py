@@ -1,11 +1,14 @@
-"""Elastic restore, the mesh-free half: re-derive the shadow plane for a
-re-partitioned world — the port of ``repro.core.elastic``.
+"""Elastic restore: re-partition the consolidated checkpoint onto a
+reconfigured mesh — the port of ``repro.core.elastic``.
 
 The shadow's consolidated checkpoint is already a full unsharded tree, so
 landing it on a different parallelism layout needs no data movement
 beyond the normal restore; what has to be rebuilt is everything the old
 layout derived:
 
+* the mesh + `ShardingRules` (``mesh_from_plan`` / ``rules_from_plan``
+  realise a `repro_torch.core.costmodel.ElasticPlan` over the default
+  process group's ranks, or the one-rank world without one);
 * the capture-side `BucketLayout` and the bucket -> shadow-node ownership
   map (``rebuild_shadow``);
 * the shadow plane itself: a fresh `ShadowCluster` re-seeded from the
@@ -16,25 +19,49 @@ layout derived:
 * the `GradientChannel` + checkpointer wiring
   (`CheckmateCheckpointer.reconfigure`), booked on the stall ledger as the
   named ``elastic-reshard`` stage.
-
-The physical mesh (``mesh_from_plan``, ``rules_from_plan``) waits for the
-port's multi-GPU slice; `plan_elastic_mesh` is the port's `costmodel`'s.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import torch.distributed as dist
+
 from repro_torch.core.buckets import layout_for_tree
 from repro_torch.core.costmodel import (ElasticMeshBudget, ElasticPlan,
                                         ElasticPlanError, plan_elastic_mesh)
 from repro_torch.core.shadow import ShadowCluster
+from repro_torch.dist.sharding import Mesh, ShardingRules
 
 __all__ = ["ElasticMeshBudget", "ElasticPlan", "ElasticPlanError",
-           "ELASTIC_STAGE", "plan_elastic_mesh", "rebuild_shadow"]
+           "ELASTIC_STAGE", "plan_elastic_mesh", "mesh_from_plan",
+           "rules_from_plan", "rebuild_shadow"]
 
 #: Stall-ledger stage name for the whole plane reconfiguration (channel
 #: close/open + shadow swap), in `repro_torch.obs.stalls.KNOWN_STAGES`.
 ELASTIC_STAGE = "elastic-reshard"
+
+
+def mesh_from_plan(plan: ElasticPlan, device=None) -> Mesh:
+    """Build the mesh an `ElasticPlan` describes on ``device`` (the card
+    unless the caller asks for the CPU).
+
+    The ranks are the default process group's (one where no group is
+    up); the plan's survivor ranks fill the mesh, lowest first.
+    """
+    visible = dist.get_world_size() if dist.is_initialized() else 1
+    if plan.n_ranks > visible:
+        raise ElasticPlanError(
+            f"plan needs {plan.n_ranks} device(s) but only "
+            f"{visible} are visible")
+    picked = (list(plan.survivors) if plan.survivors
+              else list(range(plan.n_ranks)))
+    return Mesh.over_ranks(plan.mesh_shape, plan.axis_names, picked,
+                           device=device)
+
+
+def rules_from_plan(plan: ElasticPlan, device=None) -> ShardingRules:
+    """`ShardingRules` for the planned mesh (FSDP flag from the plan)."""
+    return ShardingRules(mesh_from_plan(plan, device), fsdp=plan.fsdp)
 
 
 def rebuild_shadow(old: ShadowCluster, ckpt: dict, *,

@@ -1,5 +1,6 @@
-"""Failure injection and recovery from the shadow checkpoint, the port of
-``repro.core.recovery`` (no elastic restart yet).
+"""Failure injection and recovery from the shadow checkpoint, including
+elastic restart (restore onto other sharding rules) — the port of
+``repro.core.recovery``.
 
 Recovery consolidates the shadow partitions into a full checkpoint — or,
 when shadow nodes are lost, rebuilds what they held from the durability
@@ -48,6 +49,16 @@ def state_from_checkpoint(ckpt: dict, device=None) -> TrainState:
                       step=int(ckpt["step"]))
 
 
+def placement_device(rules) -> torch.device:
+    """The device a state lands on under ``rules``: its mesh's, which
+    must be a one-rank mesh (more ranks is ROADMAP item 11b)."""
+    if rules.mesh.size > 1:
+        raise NotImplementedError(
+            f"a trainer state over a mesh of {rules.mesh.size} ranks "
+            f"({rules.mesh.shape}) is ROADMAP item 11b")
+    return rules.mesh.device
+
+
 def checkpoint_from_state(state: TrainState) -> dict:
     """Host snapshot of a TrainState (the resync path and tests)."""
     return {
@@ -62,7 +73,8 @@ def checkpoint_from_state(state: TrainState) -> dict:
 def recover(shadow: ShadowCluster, device=None,
             timeout: Optional[float] = None,
             allow_partial: bool = False,
-            tiers=None) -> tuple[TrainState, int]:
+            tiers=None,
+            new_rules=None) -> tuple[TrainState, int]:
     """Consolidate the shadow cluster and rebuild the trainer's state on
     ``device``; returns (state, resume_step).
 
@@ -76,7 +88,21 @@ def recover(shadow: ShadowCluster, device=None,
     newest durable epoch (the one ``ShadowNodeLoss.durable_hint`` names).
     Only where the tiers cannot serve does ``allow_partial=True`` rebuild
     the surviving leaves alone.
+
+    ``new_rules`` (a `repro_torch.dist.sharding.ShardingRules`) is the
+    elastic-restart path (`repro_torch.core.elastic`): the consolidated
+    checkpoint — a full unsharded tree, from the live plane or the tiers —
+    lands on a mesh other than the run's. The tiers are always read with
+    the OLD capture layout (``shadow.layout`` and ``shadow.n_nodes`` wrote
+    those records); only the final placement follows the new rules, on
+    the new mesh's device (``device`` is then not used). A mesh of more
+    than one rank raises: laying the state out over ranks is ROADMAP item
+    11b. The caller then rebuilds what the old layout derived
+    (`repro_torch.core.elastic.rebuild_shadow` +
+    `CheckmateCheckpointer.reconfigure`).
     """
+    if new_rules is not None:
+        device = placement_device(new_rules)
     try:
         ckpt = shadow.consolidate(timeout=timeout)
     except ShadowNodeLoss as e:

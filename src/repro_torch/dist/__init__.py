@@ -1,2 +1,3 @@
-"""Distributed pieces of the port (the port of ``repro.dist``): so far the
-int8 + error-feedback gradient codec."""
+"""Distributed pieces of the port (the port of ``repro.dist``): the int8 +
+error-feedback gradient codec, the logical-axis sharding rules, and the
+explicit ring RS+AG and GPipe schedules over ``torch.distributed``."""

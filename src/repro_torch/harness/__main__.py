@@ -66,19 +66,11 @@ def _check_time_budget(timings: dict, budget_path: str) -> int:
 
 
 def _run_many(scenarios, bundle_dir, device, budget_path=None) -> int:
-    """Run each scenario; one the port cannot run yet (`run_scenario`
-    raises NotImplementedError) is named as REFUSED and counts as not
-    passed, so the exit code says the corpus did not all run."""
-    failed = refused = 0
+    failed = 0
     timings: dict = {}
     for sc in scenarios:
         t0 = time.monotonic()
-        try:
-            result = run_scenario(sc, bundle_dir=bundle_dir, device=device)
-        except NotImplementedError as e:
-            refused += 1
-            print(f"{'REFUSED':<8} {sc.name:<34} {sc.level:<7} {e}")
-            continue
+        result = run_scenario(sc, bundle_dir=bundle_dir, device=device)
         timings[sc.name] = time.monotonic() - t0
         print(f"{result.describe()}  [{timings[sc.name]:.1f}s]")
         if not result.passed:
@@ -86,11 +78,10 @@ def _run_many(scenarios, bundle_dir, device, budget_path=None) -> int:
             if result.bundle_path:
                 print(f"         repro bundle -> {result.bundle_path}")
     n = len(scenarios)
-    print(f"# {n - failed - refused}/{n} scenarios passed"
-          + (f", {failed} FAILED" if failed else "")
-          + (f", {refused} REFUSED (not ported)" if refused else ""))
+    print(f"# {n - failed}/{n} scenarios passed"
+          + (f", {failed} FAILED" if failed else ""))
     over = _check_time_budget(timings, budget_path) if budget_path else 0
-    return 1 if (failed or refused or over) else 0
+    return 1 if (failed or over) else 0
 
 
 def _cmd_run(args) -> int:

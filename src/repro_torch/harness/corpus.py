@@ -9,8 +9,6 @@ Every golden scenario must pass every applicable invariant;
 ``python -m repro_torch.harness run --corpus golden`` is the CI chaos gate.
 Channel-level scenarios drive checkpointer -> channel -> fabric -> shadow
 on a synthetic stream (fast); full-level ones run the real training loop.
-The port's runner refuses ``elastic-fsdp-flip`` (a full-level shrink onto
-an FSDP-flipped mesh) until the multi-GPU slice, ROADMAP item 11.
 """
 from __future__ import annotations
 

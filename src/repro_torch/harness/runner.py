@@ -18,9 +18,9 @@ every step. Two stack depths:
 * full level — the port's `repro_torch.train.loop.train` on a model
   config (the reference's ``.reduced()`` unless ``cfg`` is given),
   observed through its ``step_hook``; an uninterrupted reference run from
-  the same initial state provides the bit-identity targets. A full-level
-  elastic shrink (``elastic-fsdp-flip``) needs sharding rules the port
-  has not got: it raises `NotImplementedError` (ROADMAP item 11).
+  the same initial state provides the bit-identity targets; a full-level
+  elastic shrink (``elastic-fsdp-flip``) restores onto FSDP-flipped
+  sharding rules on the one-rank smoke mesh (``train(elastic_rules=)``).
 
 Everything runs on ``device``: the card unless the caller passes
 ``device="cpu"``. On violation the runner emits a minimal repro bundle —
@@ -54,6 +54,7 @@ from repro_torch.core.recovery import (FailurePlan, checkpoint_from_state,
 from repro_torch.core.shadow import (ConsolidationTimeout, ShadowCluster,
                                      ShadowNodeLoss)
 from repro_torch.device import resolve
+from repro_torch.dist.sharding import ShardingRules, make_smoke_mesh
 from repro_torch.harness import invariants as inv
 from repro_torch.harness.scenario import Scenario
 from repro_torch.optim.functional import apply_updates
@@ -622,13 +623,8 @@ def _run_channel(sc: Scenario, trace: Trace, engine: _Engine,
 
 def _run_full(sc: Scenario, trace: Trace, engine: _Engine,
               device: torch.device, cfg=None):
-    if sc.schedule.train_node_loss:
-        raise NotImplementedError(
-            f"{sc.name}: a full-level train_node_loss restores onto "
-            f"FSDP-flipped sharding rules (ShardingRules(fsdp=), "
-            f"train(elastic_rules=)), which the port has not got yet — "
-            f"ROADMAP item 11")
     cfg = cfg if cfg is not None else configs.get(sc.arch).reduced()
+    rules = ShardingRules(make_smoke_mesh(device))
     opt = sc.opt_config()
 
     def lr_fn(_):
@@ -638,7 +634,8 @@ def _run_full(sc: Scenario, trace: Trace, engine: _Engine,
     ref_state, ref_stats = train(
         cfg, steps=sc.steps, batch=sc.batch, seq=sc.seq, opt=opt,
         lr_fn=lr_fn, seed=sc.seed,
-        state=make_train_state(cfg, sc.seed, device), device=device)
+        state=make_train_state(cfg, sc.seed, device), device=device,
+        rules=rules)
     trace.ref_losses = list(ref_stats.losses)
     trace.ref_final = checkpoint_from_state(ref_state)
     del ref_state
@@ -662,6 +659,21 @@ def _run_full(sc: Scenario, trace: Trace, engine: _Engine,
         ck = NoCheckpointer()
     trace.checkpointer = ck
 
+    # elastic shrink at full level: the drill restores onto an FSDP-flipped
+    # ShardingRules — the one layout change the one-rank smoke mesh can
+    # express. The TrainNodeLoss fires as an injected failure on the step
+    # AFTER tl.step ("ranks die after step"), and the loop's elastic path
+    # (train(..., elastic_rules=...)) does the reconfiguration.
+    fail_steps = tuple(sc.schedule.train_fail_steps)
+    elastic_rules = None
+    elastic_recovery = None
+    if sc.schedule.train_node_loss:
+        tl = sc.schedule.train_node_loss[0]
+        fail_steps = tuple(sorted(set(fail_steps) | {tl.step + 1}))
+        elastic_rules = ShardingRules(make_smoke_mesh(device),
+                                      fsdp=not rules.fsdp)
+        elastic_recovery = fail_steps.index(tl.step + 1) + 1
+
     seen = {"ncp": 0, "skip": 0, "resync": 0, "recov": 0}
 
     def hook(step, state, stats):
@@ -670,12 +682,22 @@ def _run_full(sc: Scenario, trace: Trace, engine: _Engine,
         if stats.recoveries > seen["recov"]:
             seen["recov"] = stats.recoveries
             rec.restored_step = stats.recovered_at[-1]
+            if (elastic_recovery is not None
+                    and stats.recoveries >= elastic_recovery
+                    and not trace.elastic_events):
+                rec.elastic = True
+                trace.elastic_events.append({
+                    "step": tl.step, "killed": sorted(tl.ranks),
+                    "fsdp": True,
+                    "resumed_step": int(rec.restored_step)})
         if shadow is not None:
             rec.resync = len(ck.resyncs) > seen["resync"]
             rec.gated = len(ck.skipped_steps) > seen["skip"]
             rec.applied = ck.n_checkpoints > seen["ncp"] and not rec.resync
             seen.update(ncp=ck.n_checkpoints, skip=len(ck.skipped_steps),
                         resync=len(ck.resyncs))
+            # consolidate the checkpointer's CURRENT plane — an elastic
+            # reconfiguration swaps the cluster object mid-run
             shadow_ck = ck.shadow.consolidate()
             rec.shadow_step = int(shadow_ck["step"])
             rec.shadow_ckpt = shadow_ck
@@ -696,8 +718,8 @@ def _run_full(sc: Scenario, trace: Trace, engine: _Engine,
     state, stats = train(
         cfg, steps=sc.steps, batch=sc.batch, seq=sc.seq, opt=opt,
         lr_fn=lr_fn, seed=sc.seed, state=s0, checkpointer=ck,
-        failure_plan=FailurePlan(tuple(sc.schedule.train_fail_steps)),
-        step_hook=hook, device=device)
+        failure_plan=FailurePlan(fail_steps), step_hook=hook,
+        device=device, rules=rules, elastic_rules=elastic_rules)
     trace.stats = stats
     trace.final = checkpoint_from_state(state)
     if shadow is not None and sc.shadow_async:

@@ -167,8 +167,7 @@ class TrainNodeLoss:
     resumes at the new DP width. ``ranks`` are ORIGINAL-world rank ids;
     a second `TrainNodeLoss` at a later step shrinks again (double
     shrink). At full level the drill restores onto an FSDP-flipped
-    `ShardingRules`, which the port has not got yet: its runner raises
-    `NotImplementedError` there (ROADMAP item 11).
+    `ShardingRules` (the layout change a one-rank mesh can express).
     """
     step: int
     ranks: tuple[int, ...] = (0,)

@@ -9,7 +9,8 @@ on the card (``device_flats``, the compressed channel) is handed the device
 buckets instead and brings its own output to the host. Copy-persist
 baselines read the state through ``StepEvent.state_fn`` instead, and the
 loop skips the capture for them. On an injected failure the loop restores
-the checkpointer's latest checkpoint and replays from its step.
+the checkpointer's latest checkpoint and replays from its step, onto new
+sharding rules where the caller asks for an elastic restart.
 """
 from __future__ import annotations
 
@@ -29,10 +30,12 @@ from repro_torch.core.checkpoint import (BaseCheckpointer,
                                          CheckmateCheckpointer,
                                          NoCheckpointer)
 from repro_torch.core.recovery import (FailurePlan, checkpoint_from_state,
+                                       placement_device,
                                        state_from_checkpoint)
 from repro_torch.core.shadow import ShadowCluster
 from repro_torch.data.synthetic import SyntheticStream, device_batch
 from repro_torch.device import resolve
+from repro_torch.dist.sharding import ShardingRules, make_smoke_mesh
 from repro_torch.optim.functional import OptimizerConfig, TrainState
 from repro_torch.train.step import build_train_step, make_train_state
 
@@ -123,7 +126,9 @@ def train(cfg: ModelConfig, *,
           straggler_factor: float = 2.0,
           state: Optional[TrainState] = None,
           step_hook: Optional[Callable] = None,
-          device=None) -> tuple[TrainState, LoopStats]:
+          device=None,
+          rules: Optional[ShardingRules] = None,
+          elastic_rules=None) -> tuple[TrainState, LoopStats]:
     """Run ``steps`` iterations; on an injected failure, restore from the
     checkpointer (Checkmate: shadow consolidation) and continue.
 
@@ -134,8 +139,25 @@ def train(cfg: ModelConfig, *,
     ``step_hook(step, state, stats)`` runs after every completed iteration.
     An iteration slower than ``straggler_factor`` times the EMA of earlier
     ones (weight ``straggler_ema``) is flagged in ``stats.straggler_flags``.
+
+    ``rules`` are the run's sharding rules (default: the one-rank smoke
+    mesh on ``device``; a mesh of more ranks raises, ROADMAP item 11b).
+    ``elastic_rules`` is the elastic-restart path (`repro_torch.core
+    .elastic`): rules for the post-failure mesh, or a callable
+    ``(failed_step) -> rules | None`` (None keeps the current layout). On
+    the first recovery that yields other rules the loop rebuilds the step
+    function, the shadow plane and channel against the re-derived bucket
+    layout (`CheckmateCheckpointer.reconfigure`, booked as the
+    ``elastic-reshard`` stall stage) and the capture against the new
+    plane's layout, lands the checkpoint on the new mesh's device, and
+    resumes; the switch fires once. The data stream needs no rebuild: it
+    is the global batch as a pure function of (seed, step).
     """
     device = resolve(device)
+    if rules is None:
+        rules = ShardingRules(make_smoke_mesh(device))
+    elif placement_device(rules) != device:
+        raise ValueError(f"rules on {rules.mesh.device}, run on {device}")
     failure_plan = failure_plan or FailurePlan()
     stream = SyntheticStream(cfg, batch, seq, seed=seed)
     if state is None:
@@ -149,12 +171,15 @@ def train(cfg: ModelConfig, *,
         shadow.bootstrap(state.params, state.mu, state.nu, state.step)
         checkpointer = CheckmateCheckpointer(shadow, channel=channel)
     checkpointer = checkpointer or NoCheckpointer()
-    capture = None
-    if checkpointer.consumes_grads:
-        capture = Capture(checkpointer.shadow.layout, device,
-                          host=not getattr(checkpointer.channel,
-                                           "device_flats", False))
 
+    def make_capture():
+        if not checkpointer.consumes_grads:
+            return None
+        return Capture(checkpointer.shadow.layout, device,
+                       host=not getattr(checkpointer.channel,
+                                        "device_flats", False))
+
+    capture = make_capture()
     step_fn = build_train_step(cfg, opt, lr_fn)
     stats = LoopStats(checkpointer=checkpointer)
     ema_iter = None
@@ -172,6 +197,21 @@ def train(cfg: ModelConfig, *,
                 raise TrainingFailure(f"injected failure at step {step + 1} "
                                       f"and no checkpoint to restore")
             state = None                 # free the lost state first
+            nr = (elastic_rules(step + 1) if callable(elastic_rules)
+                  else elastic_rules)
+            if nr is not None and nr is not rules:
+                # elastic restart: land the checkpoint on the new rules'
+                # mesh and rebuild everything the old layout derived (step
+                # function, shadow plane and channel, and the capture,
+                # whose buffers follow the old plane's layout)
+                rules, device = nr, placement_device(nr)
+                step_fn = build_train_step(cfg, opt, lr_fn)
+                if isinstance(checkpointer, CheckmateCheckpointer):
+                    from repro_torch.core.elastic import rebuild_shadow
+                    checkpointer.reconfigure(rebuild_shadow(
+                        checkpointer.shadow, restored, device=device))
+                    capture = make_capture()
+                elastic_rules = None     # the switch fires once
             state = state_from_checkpoint(restored, device)
             step = int(restored["step"])
             stats.recoveries += 1

@@ -1,5 +1,7 @@
-"""The port's mesh-free elastic restore against the JAX package's:
-`rebuild_shadow` and `CheckmateCheckpointer.reconfigure`.
+"""The port's elastic restore: `rebuild_shadow` and
+`CheckmateCheckpointer.reconfigure` against the JAX package's, and the
+restore onto other sharding rules (`recover(new_rules=)`,
+`train(elastic_rules=)`, `mesh_from_plan`) on the one-rank smoke mesh.
 
 Both packages start from the same numpy checkpoint and must derive the same
 `BucketLayout` (with and without ``cap_bytes``, or an injected layout), the
@@ -10,7 +12,9 @@ two shadows agree to rtol 1e-5 / atol 1e-6 (the cross-package tolerance
 of tests/test_torch_shadow.py). A migrated `DurableShadow` writes the new
 base at the resume step with epochs numbered on from the old plane's, the
 same manifest on both packages; ``elastic-reshard`` is booked once and
-the stall ledger sums to ``stall_total`` bit for bit.
+the stall ledger sums to ``stall_total`` bit for bit. A restore onto
+FSDP-flipped rules, from the live plane or the tiers, is bitwise the
+trainer's state, and the loop's losses are an uninterrupted run's.
 """
 import numpy as np
 import pytest
@@ -221,3 +225,151 @@ def test_durable_shadow_migrates_with_a_base_at_the_resume_step(tmp_path):
     _bitwise(restored, _t(ckpt))
     jd.close()
     td.close()
+
+
+# -- elastic restore onto new sharding rules ----------------------------------
+
+def _tiny():
+    from repro_torch import configs
+    return configs.get("tinyllama-1.1b").reduced()
+
+
+def _state_equal(state, ref, parts=("params", "mu", "nu")):
+    for part in parts:
+        a, b = getattr(state, part), getattr(ref, part)
+        assert set(a) == set(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), (part, k)
+
+
+def test_recover_from_tiers_onto_reconfigured_mesh(tmp_path):
+    """Total plane loss + a change of sharding rules in ONE recovery: the
+    tiers are read with the OLD capture layout and only the final
+    placement follows the new rules — the smoke mesh's FSDP flip (the twin
+    of tests/test_elastic.py::test_recover_from_tiers_onto_reconfigured_mesh)."""
+    from repro_torch.core.recovery import recover
+    from repro_torch.data.synthetic import SyntheticStream, device_batch
+    from repro_torch.dist.sharding import ShardingRules, make_smoke_mesh
+    from repro_torch.train.step import build_train_step, make_train_state
+
+    cfg = _tiny()
+    opt = TOpt(lr=1e-3)
+    state = make_train_state(cfg, 0, "cpu")
+    shadow = tsh.ShadowCluster(t_layout(state.params), opt, n_nodes=2,
+                               device="cpu")
+    dur = tdur.DurableShadow([tdur.LocalDiskTier(tmp_path)]).attach(shadow)
+    shadow.bootstrap(state.params, state.mu, state.nu, 0)
+    ck = tck.CheckmateCheckpointer(shadow, channel=tch.InProcessChannel())
+    step_fn = build_train_step(cfg, opt, lambda s: 1e-3)
+    stream = SyntheticStream(cfg, 4, 16, seed=0)
+    try:
+        for t in range(3):
+            state, m, g = step_fn(state, device_batch(stream.batch_at(t),
+                                                      "cpu"))
+            ck.on_step(tch.StepEvent(step=t + 1, lr=1e-3, grads=g))
+        dur.drain()
+        for n in list(shadow.nodes):        # the WHOLE plane dies
+            shadow.kill_node(n.node_id)
+
+        rules_b = ShardingRules(make_smoke_mesh("cpu"), fsdp=True)
+        state_b, resume = recover(shadow, tiers=dur.tiers, new_rules=rules_b)
+        assert resume == 3 and state_b.step == 3
+        _state_equal(state_b, state, ("params", "mu"))
+        step_b = build_train_step(cfg, opt, lambda s: 1e-3)
+        state_b, m2, _ = step_b(state_b, device_batch(stream.batch_at(3),
+                                                      "cpu"))
+        assert state_b.step == 4 and torch.isfinite(m2["loss"])
+    finally:
+        shadow.shutdown()
+
+
+def _rules_over(size, device="cpu"):
+    """ShardingRules over a stand-in mesh of ``size`` ranks on ``device``."""
+    from repro_torch.dist.sharding import ShardingRules
+    return ShardingRules(type("M", (), {
+        "size": size, "shape": {"data": size},
+        "device": torch.device(device)})())
+
+
+def test_more_than_one_rank_raises_naming_item_11b():
+    from repro_torch.core.recovery import recover
+    from repro_torch.train.loop import train
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        recover(None, new_rules=_rules_over(4))
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        train(_tiny(), steps=1, batch=2, seq=16, device="cpu",
+              rules=_rules_over(2))
+    with pytest.raises(ValueError, match="rules on meta, run on cpu"):
+        train(_tiny(), steps=1, batch=2, seq=16, device="cpu",
+              rules=_rules_over(1, "meta"))
+
+
+def _elastic_run(elastic_rules, fail_at, cap=2048):
+    """train() at the reduced tinyllama through a CheckmateCheckpointer
+    whose plane was bucketed at ``cap`` bytes: an elastic restart re-derives
+    the default bucketing, so the capture must follow the new layout."""
+    from repro_torch.core.recovery import FailurePlan
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import make_train_state
+    cfg = _tiny()
+    opt = TOpt(lr=1e-3)
+    s0 = make_train_state(cfg, 0, "cpu")
+    shadow = tsh.ShadowCluster(t_layout(s0.params, cap), opt, n_nodes=2,
+                               device="cpu")
+    shadow.bootstrap(s0.params, s0.mu, s0.nu, 0)
+    ck = tck.CheckmateCheckpointer(shadow, channel=tch.InProcessChannel())
+    state, stats = train(cfg, steps=6, batch=4, seq=16, opt=opt,
+                         checkpointer=ck, state=s0, device="cpu",
+                         failure_plan=FailurePlan(fail_at),
+                         elastic_rules=elastic_rules)
+    return state, stats, ck, shadow
+
+
+@pytest.mark.parametrize("how", ["rules", "callable"])
+def test_train_elastic_rules_flips_once_and_stays_bitwise(how):
+    from repro_torch.dist.sharding import ShardingRules, make_smoke_mesh
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import make_train_state
+    flipped = ShardingRules(make_smoke_mesh("cpu"), fsdp=True)
+    asked = []
+
+    def pick(failed_step):
+        asked.append(failed_step)
+        return None if failed_step == 3 else flipped
+
+    er, fail_at = ((flipped, (4,)) if how == "rules"
+                   else (pick, (3, 5)))
+    state, stats, ck, old = _elastic_run(er, fail_at)
+    if how == "callable":
+        assert asked == [3, 5]          # asked at each failure, until it fires
+    assert stats.recoveries == len(fail_at)
+    assert stats.recovered_at == [s - 1 for s in fail_at]
+    assert list(ck.stall_stages).count("elastic-reshard") == 1
+    assert ck.shadow is not old and ck.n_checkpoints == 6
+    # the rebuilt plane took the default bucketing, not the old 2 KB one
+    assert len(ck.shadow.layout.buckets) < len(old.layout.buckets)
+    assert ck.shadow.layout.buckets == t_layout(state.params).buckets
+    got = ck.shadow.consolidate()
+    assert got["step"] == 6
+    for part in ("params", "mu", "nu"):
+        for k, v in getattr(state, part).items():
+            assert torch.equal(got[part][k], v), (part, k)
+    _, ref = train(_tiny(), steps=6, batch=4, seq=16, opt=TOpt(lr=1e-3),
+                   state=make_train_state(_tiny(), 0, "cpu"), device="cpu")
+    assert stats.losses == ref.losses
+
+
+def test_mesh_from_plan_needs_the_ranks():
+    plan = tel.plan_elastic_mesh(4)
+    assert plan.n_ranks == 4
+    with pytest.raises(tel.ElasticPlanError,
+                       match="plan needs 4 device.s. but only 1 are visible"):
+        tel.mesh_from_plan(plan, device="cpu")
+    with pytest.raises(tel.ElasticPlanError):
+        tel.rules_from_plan(plan, device="cpu")
+    one = tel.plan_elastic_mesh(1)
+    rules = tel.rules_from_plan(one, device="cpu")
+    assert rules.mesh.shape == dict(zip(one.axis_names, one.mesh_shape))
+    assert rules.mesh.size == 1 and rules.mesh.device_mesh is None
+    assert rules.fsdp == one.fsdp
+    assert jel.plan_elastic_mesh(1).mesh_shape == one.mesh_shape

@@ -270,12 +270,12 @@ def test_cli_run_with_time_budget(capsys, monkeypatch):
     assert rcs == [0, 1, 0]
     rc = harness_main(["run", "--scenario", "no-such", "--device", "cpu"])
     assert rc == jax_harness_main(["run", "--scenario", "no-such"]) == 2
-    # the one scenario the port refuses is named, and fails the run
-    assert harness_main(["run", "--scenario", "elastic-fsdp-flip",
-                         "--device", "cpu"]) == 1
+    # the full-level elastic drill runs and passes, as on the reference
+    args = ["run", "--scenario", "elastic-fsdp-flip"]
+    assert harness_main(args + ["--device", "cpu"]) == \
+        jax_harness_main(args) == 0
     out = capsys.readouterr().out
-    assert "REFUSED" in out and "item 11" in out
-    assert "# 0/1 scenarios passed, 1 REFUSED (not ported)" in out
+    assert out.count("# 1/1 scenarios passed") == 2 and "REFUSED" not in out
 
 
 def test_cli_replay_seed_and_bundle(tmp_path, capsys):

@@ -1,16 +1,16 @@
 """The port's chaos harness at full level against the JAX package's.
 
-The four full-level golden scenarios the port runs go through the port's
+The five full-level golden scenarios go through the port's
 `train` and the reference's, from the same initial weights (the
 reference's ``init_params`` for the scenario's seed, carried over by
 `repro_torch.convert`) at the reference's ``.reduced()`` config with f32
 compute on both sides. The port must pass every invariant (inside the
-port: bitwise), give the reference's recoveries, replayed steps and
-gated/resync record, and its losses must follow the reference's to rtol
-1e-4, the tolerance of tests/test_torch_system.py::
+port: bitwise), give the reference's recoveries, replayed steps,
+gated/resync record and elastic events (``elastic-fsdp-flip`` restores
+onto FSDP-flipped sharding rules on both), and its losses must follow the
+reference's to rtol 1e-4, the tolerance of tests/test_torch_system.py::
 test_loss_trajectory_matches_jax_train (the two frameworks sum in other
-orders). ``elastic-fsdp-flip`` needs sharding rules the port has not got:
-it raises `NotImplementedError` naming ROADMAP item 11.
+orders).
 """
 import dataclasses
 
@@ -32,8 +32,7 @@ from repro_torch.convert import state_from_numpy
 
 torch.set_num_threads(2)   # leave cores to the other test workers
 
-FULL = [n for n, s in T.GOLDEN.items()
-        if s.level == "full" and n != "elastic-fsdp-flip"]
+FULL = [n for n, s in T.GOLDEN.items() if s.level == "full"]
 
 
 def _f32(cfg):
@@ -60,7 +59,7 @@ def same_init(monkeypatch):
 
 def _record(r):
     return (r.step, r.gated, r.applied, r.resync, r.restored_step,
-            r.first_seen, r.shadow_step)
+            r.first_seen, r.shadow_step, r.elastic)
 
 
 @pytest.mark.parametrize("name", FULL)
@@ -74,6 +73,7 @@ def test_full_scenario_matches_jax(name, same_init):
         (js.steps, js.failures, js.recoveries, js.recovered_at)
     assert [_record(r) for r in tr.trace.records] == \
         [_record(r) for r in jr.trace.records]
+    assert tr.trace.elastic_events == jr.trace.elastic_events
     np.testing.assert_allclose(ts.losses, js.losses, rtol=1e-4)
     np.testing.assert_allclose(tr.trace.ref_losses, jr.trace.ref_losses,
                                rtol=1e-4)
@@ -90,8 +90,3 @@ def test_full_scenarios_at_the_reduced_bf16_default():
         res = T.run_scenario(T.GOLDEN[name], device="cpu")
         assert res.passed, (name, res.violations)
         assert len(res.trace.ref_losses) == T.GOLDEN[name].steps
-
-
-def test_elastic_fsdp_flip_raises_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.run_scenario(T.GOLDEN["elastic-fsdp-flip"], device="cpu")
