@@ -36,6 +36,19 @@ Phases, in order; any failed check raises and the script exits nonzero:
              params, mu and nu bit for bit, every kernel of the path must
              have run, the wgmma flash kernel 2 x layers x microbatches
              times a step and the mma.sync flash kernel never.
+4b. ranks  — the data-parallel path over a one-rank NCCL world
+             (``init_process_group("nccl")`` on a file store, rank 0 of
+             1; ``Mesh.over_ranks((1, 1), ("data", "model"))`` with a
+             DeviceMesh behind it): ``train(rules=...)`` and today's
+             ``train()`` on tinyllama-1.1b at full width, 2 of 22 layers,
+             bf16, 8 x 2048, 4 microbatches, 6 steps, a failure at step
+             4, into a 2-node async shadow: losses, final states and
+             the shadows' checkpoints bitwise equal between the runs, each
+             trainer bitwise its checkpoint, no step lost, the wgmma flash
+             kernel 2 x layers x microbatches times a step, AdamW and the
+             pack launched; both step times beside the card's name and
+             power limit. One card runs one rank: the n > 1 schedules
+             are held on gloo ranks by the CPU tests.
 5. checkpointers — the training CLI (``repro_torch.launch.train.run``)
              at full width and depth, ``--freq 1``, 5 steps, once per
              checkpointer: none; checkmate (2 async nodes, lag bound 2);
@@ -43,7 +56,7 @@ Phases, in order; any failed check raises and the script exits nonzero:
              packetized --topology rail-optimized`` (the gradients cross
              the simulated multicast fabric; these two at 6 layers,
              ``--layers 6``); sync; async; torch_dcp;
-             gemini; checkfreq (the last five also at ``--layers 6``). Every
+             gemini; checkfreq (the last five at ``--layers 2``). Every
              run but none fails at step 4. Each
              stall ledger must sum bit for bit, none must book no stall,
              each Checkmate run must lose no step at the failure, each
@@ -148,8 +161,8 @@ Phases, in order; any failed check raises and the script exits nonzero:
              kernels beside their plain versions at the main path's
              shapes), multicast_overhead (Fig 10; drops 0),
              optimizer_scaling (Fig 8: gpt3-6.7b, 2 layers, 1/2/4/8 shadow
-             nodes), stalls (Fig 2: gpt3-xl, 2 layers, 8 x 2048, 4 steps,
-             six systems), throughput (Fig 6: vit-h-14, gpt2-1.5b and
+             nodes), stalls (Fig 2: gpt3-xl, 2 layers, 8 x 2048, six
+             systems: 4 steps, the four copy-persist ones 2), throughput (Fig 6: vit-h-14, gpt2-1.5b and
              gpt3-xl at 2 layers, llama2-7b at 1; no checkpoint and
              Checkmate 8 steps at each; async and gemini 3 steps and
              CheckFreq 6 at vit-h-14),
@@ -172,7 +185,7 @@ Phases, in order; any failed check raises and the script exits nonzero:
              figure model's share of the bf16 peak at its measured step
              (not gated).
 
-Output: a ``main_path`` JSON line, ``flash_d128``, ``flash_f32_d128``,
+Output: a ``main_path`` JSON line, a ``ranks`` JSON line, ``flash_d128``, ``flash_f32_d128``,
 ``flash_bf16_d80``, ``flash_prefill`` (with phase 9's dense prefill
 launches) and ``pack_host`` timing lines, a ``kernels`` JSON line,
 a ``checkpointers`` JSON line, a ``durability`` JSON line, a ``harness``
@@ -228,9 +241,9 @@ PACKETIZED = ("--channel", "packetized", "--topology", "rail-optimized",
               "--layers", str(PACKETIZED_LAYERS))
 # the five copy-persist rows run at COPY_PERSIST_LAYERS layers (full
 # width): each of their checkpoints copies the whole state through
-# pageable host memory (40-75 s a run at full depth), and phases 8 and 10
-# need the time
-COPY_PERSIST_LAYERS = 6
+# pageable host memory (40-75 s a run at full depth, 10-22 s of stall at
+# 6 layers), and phases 4b, 8 and 10 need the time
+COPY_PERSIST_LAYERS = 2
 COPY_PERSIST = ("--layers", str(COPY_PERSIST_LAYERS))
 CKPT_RUNS = (
     ("none", ()),
@@ -905,6 +918,103 @@ def phase_main(cfg, steps: int = 6) -> tuple[dict, dict]:
           f"{[round(x, 4) for x in stats.losses]}, checkpoint at step "
           f"{ckpt['step']} bitwise equal to the trainer", flush=True)
     return out, launches
+
+
+# -- phase 4b ----------------------------------------------------------------
+# The data-parallel path on the card: train(rules=) over a one-rank NCCL
+# world (NCCL refuses two ranks on one card, and a gloo world would time
+# host copies), held bitwise against today's train() on the same cut:
+# tinyllama-1.1b at full width, RANKS_LAYERS of its 22 layers, MAIN_RUN's
+# batch and shadow, a failure at step 4. The n > 1 schedules are held on
+# gloo ranks by the CPU tests.
+RANKS_LAYERS, RANKS_STEPS = 2, 6
+
+
+def card_name_power() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_ranks(cfg) -> dict:
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core.channel import InProcessChannel
+    from repro_torch.core.recovery import FailurePlan
+    from repro_torch.dist.sharding import Mesh, ShardingRules
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import train
+    cut = dataclasses.replace(cfg, num_layers=RANKS_LAYERS)
+    store = tempfile.mkdtemp()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        store, "store"), rank=0, world_size=1)
+    runs = {}
+    try:
+        mesh = Mesh.over_ranks((1, 1), ("data", "model"))
+        check(mesh.device_mesh is not None and mesh.device_type == "cuda"
+              and mesh.coords == {"data": 0, "model": 0},
+              f"ranks: mesh {mesh} at {mesh.coords}")
+        for label, kw in (("rules", {"rules": ShardingRules(mesh)}),
+                          ("plain", {})):
+            _free()
+            ops.reset_launch_counts()
+            state, stats = train(cut, steps=RANKS_STEPS,
+                                 channel=InProcessChannel(),
+                                 failure_plan=FailurePlan((4,)), seed=0,
+                                 device="cuda", **MAIN_RUN, **kw)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            shadow = stats.checkpointer.shadow
+            ckpt = shadow.consolidate()
+            shadow.shutdown()
+            check(stats.recoveries == 1 and stats.recovered_at == [3]
+                  and ckpt["step"] == RANKS_STEPS,
+                  f"ranks: {label}: recovered at {stats.recovered_at}, "
+                  f"checkpoint at {ckpt['step']}")
+            for tree in ("params", "mu", "nu"):
+                for k, t in getattr(state, tree).items():
+                    check(torch.equal(ckpt[tree][k].to(t.device), t),
+                          f"ranks: {label}: checkpoint {tree}[{k}] not "
+                          f"bitwise the trainer's")
+            want = 2 * cut.num_layers * cut.microbatches * stats.steps
+            check(launches["flash_attention_wgmma"] == want
+                  and launches["flash_attention_mma"] == 0
+                  and launches["fused_adamw"] > 0
+                  and launches["bucket_pack"] > 0,
+                  f"ranks: {label}: launches {launches} (wgmma {want})")
+            runs[label] = dict(state=state, stats=stats, ckpt=ckpt,
+                               launches=launches)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    a, b = runs["rules"], runs["plain"]
+    check(a["stats"].losses == b["stats"].losses,
+          f"ranks: losses {a['stats'].losses} vs {b['stats'].losses}")
+    for tree in ("params", "mu", "nu"):
+        for k, t in getattr(a["state"], tree).items():
+            check(torch.equal(t, getattr(b["state"], tree)[k]),
+                  f"ranks: trainer {tree}[{k}] differs between the runs")
+            check(torch.equal(a["ckpt"][tree][k], b["ckpt"][tree][k]),
+                  f"ranks: checkpoint {tree}[{k}] differs between the runs")
+    out = {"model": cut.name, "layers": cut.num_layers,
+           "batch": MAIN_RUN["batch"], "seq": MAIN_RUN["seq"],
+           "microbatches": cut.microbatches, "steps": RANKS_STEPS,
+           "steps_run": a["stats"].steps, "recovered_at":
+           a["stats"].recovered_at, "lost_steps": 0,
+           "losses": a["stats"].losses,
+           "step_ms": {k: r["stats"].steady_iter * 1e3
+                       for k, r in runs.items()},
+           "launches": {k: r["launches"] for k, r in runs.items()},
+           "bitwise_equal": True, "card": card_name_power()}
+    print(f"ranks: one-rank NCCL train(rules=) vs train(), {cut.name} "
+          f"{cut.num_layers}L: step {out['step_ms']['rules']:.2f} vs "
+          f"{out['step_ms']['plain']:.2f} ms, launches {out['launches']}, "
+          f"losses, states and checkpoints bitwise equal; {out['card']}",
+          flush=True)
+    return out
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -2796,6 +2906,8 @@ def main():
     lap("small")
     main_out, launches = phase_main(cfg)
     lap("main")
+    ranks = phase_ranks(cfg)
+    lap("ranks")
     # each kernel's launches on its path: the f32 flash kernel's is phase
     # 3's full-width run, every other kernel's phase 4
     for r in rows:
@@ -2825,6 +2937,7 @@ def main():
     more = ("shape", "dtype", "bound_unit", "other_bound_ms", "other_bound_by",
             "other_bound_unit")
     print(json.dumps({"main_path": main_out}))
+    print(json.dumps({"ranks": ranks}))
     for label, r in flash_extra.items():
         print(json.dumps({label: {k: r[k] for k in keys + more if k in r}}))
     print(json.dumps({"pack_host": pack_host}))
@@ -2837,10 +2950,7 @@ def main():
     print(json.dumps({"serving": serving}))
     print(json.dumps({"benchmarks": bench}))
     print(json.dumps({"examples": examples}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_name_power())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

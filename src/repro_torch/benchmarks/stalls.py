@@ -5,8 +5,10 @@ Paper claims to reproduce (relative): sync stalls worst (9.5x there);
 async still stalls (same volume); sharding reduces it; Checkmate ~
 no-ckpt. On the card (the default) the model is gpt3-xl at full width
 (d_model 2048, 16 heads, d_ff 8192, vocab 50257), cut to ``CARD['layers']``
-of its 24 layers, at batch 8 x seq 2048 for ``CARD['steps']`` steps; on
-the CPU it is the JAX module's ``bench_config`` model and sizes.
+of its 24 layers, at batch 8 x seq 2048 for ``CARD['steps']`` steps (the
+copy-persist systems ``CARD['copy_persist_steps']``: each of their
+checkpoints copies the state through pageable host memory, seconds a
+step); on the CPU it is the JAX module's ``bench_config`` model and sizes.
 """
 from __future__ import annotations
 
@@ -19,9 +21,10 @@ from repro_torch.train.loop import train
 from repro_torch.train.step import make_train_state
 
 STEPS, BATCH, SEQ = 6, 8, 128
-CARD = dict(layers=2, steps=4, batch=8, seq=2048)
+CARD = dict(layers=2, steps=4, copy_persist_steps=2, batch=8, seq=2048)
 SYSTEMS = ("no_checkpoint", "checkmate", "sync", "async", "torch_dcp",
            "gemini")
+COPY_PERSIST = ("sync", "async", "torch_dcp", "gemini")
 
 
 def run(device=None, cfg=None, init_state=None,
@@ -40,7 +43,9 @@ def run(device=None, cfg=None, init_state=None,
     for name in SYSTEMS:
         s0 = (init_state or make_train_state)(cfg, 0, device)
         ck = checkpointer_for(name, s0, opt, device)
-        state, stats = train(cfg, steps=steps, batch=batch, seq=seq,
+        n = (CARD["copy_persist_steps"] if device.type == "cuda"
+             and name in COPY_PERSIST else steps)
+        state, stats = train(cfg, steps=n, batch=batch, seq=seq,
                              opt=opt, checkpointer=ck, state=s0,
                              device=device)
         del s0, state

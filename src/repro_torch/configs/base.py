@@ -1,12 +1,17 @@
 """Model, shape and run configuration: the port's own copy of
 ``repro.configs.base``, field for field.
 
-Six fields are kept for equality with the JAX package's configs and are
+``fsdp`` and ``zero1`` act over more than one rank, as in the JAX
+package: ``fsdp`` is what a launcher passes to ``ShardingRules(mesh,
+fsdp=cfg.fsdp)`` (the train step follows the rules: FSDP leaves stay dp
+slices between steps), and ``zero1`` cuts mu and nu to their ZeRO-1
+slices (off: they follow the param spec). On one rank both leave every
+leaf whole.
+
+Four fields are kept for equality with the JAX package's configs and are
 not acted on by the port; setting them changes nothing:
 
-- ``scan_layers``, ``fsdp``, ``zero1``: the port has no mesh yet (one
-  device), so the layers run in a Python loop and the weights and the
-  optimizer state are whole on the one device;
+- ``scan_layers``: the layers run in a Python loop;
 - ``param_dtype``: the master weights are always float32 (the JAX package
   reads the field nowhere either);
 - ``attn_q_chunk``, ``attn_kv_chunk``: the JAX package's chunked

@@ -46,7 +46,11 @@ def mesh_from_plan(plan: ElasticPlan, device=None) -> Mesh:
     unless the caller asks for the CPU).
 
     The ranks are the default process group's (one where no group is
-    up); the plan's survivor ranks fill the mesh, lowest first.
+    up); the plan's survivor ranks fill the mesh, lowest first. Building
+    process groups is collective, so every rank of the default group
+    calls this, the lost ranks too: they build the survivors' groups with
+    them and leave afterwards (the port does not re-form the world on a
+    fresh store). A rank that leaves before this would hang the others.
     """
     visible = dist.get_world_size() if dist.is_initialized() else 1
     if plan.n_ranks > visible:

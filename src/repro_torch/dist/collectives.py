@@ -34,9 +34,49 @@ def _exchange(send: torch.Tensor, recv: torch.Tensor, group, nxt: int,
         req.wait()
 
 
-def ring_all_reduce_rs_ag(x: torch.Tensor, mesh, axis: str):
+def _ring(mesh, axis):
+    """(group, n, this rank's index, next global rank, previous one)."""
+    group = mesh.group_over(axis)
+    n = mesh.extent(axis)
+    i = dist.get_rank(group)
+    return (group, n, i, dist.get_global_rank(group, (i + 1) % n),
+            dist.get_global_rank(group, (i - 1) % n))
+
+
+def ring_reduce_scatter_(acc: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The ring's reduce-scatter half, in place on ``acc`` (n, chunk),
+    contiguous: after n-1 steps this rank's row ``i`` holds chunk ``i``
+    reduced over ``axis`` (a name, or the tuple of the dp axes), by the
+    fold the module docstring states. Returns that row (a view)."""
+    n = mesh.extent(axis)
+    if n == 1:
+        return acc[0]
+    group, n, i, nxt, prv = _ring(mesh, axis)
+    recv = torch.empty_like(acc[0])
+    for s in range(n - 1):
+        _exchange(acc[(i - s - 1) % n], recv, group, nxt, prv)
+        acc[(i - s - 2) % n] += recv
+    return acc[i]
+
+
+def ring_all_gather_(acc: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The ring's all-gather half, in place on ``acc`` (n, chunk): row
+    ``i`` of each rank ``i`` circulates until every rank holds every
+    row. Returns ``acc``."""
+    n = mesh.extent(axis)
+    if n == 1:
+        return acc
+    group, n, i, nxt, prv = _ring(mesh, axis)
+    recv = torch.empty_like(acc[0])
+    for s in range(n - 1):
+        _exchange(acc[(i - s) % n], recv, group, nxt, prv)
+        acc[(i - s - 1) % n] = recv
+    return acc
+
+
+def ring_all_reduce_rs_ag(x: torch.Tensor, mesh, axis):
     """Ring AllReduce over ``axis`` decomposed as ReduceScatter ->
-    AllGather.
+    AllGather (`ring_reduce_scatter_`, then `ring_all_gather_`).
 
     Each rank contributes its local ``x`` (a replicated input gives
     ``n * x``). Returns ``(all_reduced, owned)``:
@@ -50,29 +90,13 @@ def ring_all_reduce_rs_ag(x: torch.Tensor, mesh, axis: str):
       chunks as one global array sharded over ``axis``; a process per
       rank holds its own chunk.)
     """
-    n = mesh.shape[axis]
+    n = mesh.extent(axis)
     if n == 1:
         return x, x
-    group = mesh.group(axis)
-    i = dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (i + 1) % n)
-    prv = dist.get_global_rank(group, (i - 1) % n)
-
     flat = x.reshape(-1)
     pad = (-flat.numel()) % n
     acc = torch.cat([flat, flat.new_zeros(pad)]) if pad else flat.clone()
     acc = acc.reshape(n, -1)
-    recv = torch.empty_like(acc[0])
-
-    # -- reduce-scatter: after n-1 steps rank i owns reduced chunk i --------
-    for s in range(n - 1):
-        _exchange(acc[(i - s - 1) % n], recv, group, nxt, prv)
-        acc[(i - s - 2) % n] += recv
-    owned = acc[i].clone()
-
-    # -- all-gather: circulate the reduced chunks around the ring -----------
-    for s in range(n - 1):
-        _exchange(acc[(i - s) % n], recv, group, nxt, prv)
-        acc[(i - s - 1) % n] = recv
-
+    owned = ring_reduce_scatter_(acc, mesh, axis).clone()
+    ring_all_gather_(acc, mesh, axis)
     return acc.reshape(-1)[:flat.numel()].reshape(x.shape), owned

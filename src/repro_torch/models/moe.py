@@ -2,20 +2,32 @@
 residual), the port of ``repro.models.moe``: training, prefill and decode
 (the cache is the dense family's).
 
-Capacity routing as the JAX package computes it on one data shard (one
-token group, G = 1; G > 1 comes with the mesh): each token's top-k experts
-get a position in that expert's capacity buffer (E, C, d) in token order;
-positions at or past the capacity C drop (the token's slot contributes 0
+Capacity routing as the JAX package computes it: the tokens are grouped
+by dp rank (G = the dp extent, ``rules.axis_size("batch")``; G = 1 on one
+rank), each group against its own capacity C. A process per rank holds
+exactly its group (`repro_torch.data.synthetic.local_rows` gives it the
+reference's group rows), so the dispatch is local: each token's top-k
+experts get a position in that expert's capacity buffer (E, C, d) in
+token order; positions at or past C drop (the token's slot contributes 0
 and gets 0 gradient), the expert FFNs run as batched products over E, and
-the results gather back weighted by the renormalised top-k gates.
+the results gather back weighted by the renormalised top-k gates. The
+reference's fallback to G = 1 where the batch does not split over the
+ranks is a ``ValueError`` in ``device_batch`` here.
+
+The load-balance loss uses means over all G groups. Each rank all-reduces
+its expert counts ``ce`` (no gradient) and computes ``E * sum(me_local *
+ce_global)``: the mean over the ranks of that is the reference's value,
+and so is the mean of its gradients, which the step takes.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.buckets import TORCH_DTYPES
+from repro_torch.dist.sharding import dp_axes
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ParamSpec
@@ -62,12 +74,14 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
                    / cfg.num_experts), 4)
 
 
-def moe_ffn(x, lp: dict, cfg: ModelConfig):
-    """x: (b, s, d) -> (y, aux_loss). Capacity-routed top-k experts."""
+def moe_ffn(x, lp: dict, cfg: ModelConfig, rules=None):
+    """x: (b, s, d), this rank's token group -> (y, aux_loss).
+    Capacity-routed top-k experts."""
     b, s, d = x.shape
     E, K = cfg.num_experts, cfg.top_k
     Tn = b * s
     C = capacity(cfg, Tn)
+    G = 1 if rules is None else rules.axis_size("batch")
 
     xt = x.reshape(Tn, d)
     logits = (xt @ lp["router"].to(x.dtype)).float()             # (T, E)
@@ -77,7 +91,11 @@ def moe_ffn(x, lp: dict, cfg: ModelConfig):
 
     # Switch-style load-balance aux loss (global means).
     me = probs.mean(dim=0)
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (Tn * K)
+    counts = torch.bincount(idx.reshape(-1), minlength=E).float()
+    if G > 1:
+        dist.all_reduce(counts, group=rules.mesh.group_over(
+            dp_axes(rules.mesh)))
+    ce = counts / (G * Tn * K)
     aux = E * torch.sum(me * ce)
 
     flat_e = idx.reshape(Tn * K)                                 # (TK,)
@@ -100,20 +118,21 @@ def moe_ffn(x, lp: dict, cfg: ModelConfig):
     return y.reshape(b, s, d), aux
 
 
-def moe_mlp(x, lp: dict, cfg: ModelConfig):
+def moe_mlp(x, lp: dict, cfg: ModelConfig, rules=None):
     """The FFN half of a MoE block with its pre-norm and residual: the
     routed experts, plus the dense SwiGLU beside them where
     ``cfg.dense_residual`` (arctic). Returns (x, aux)."""
     xn = L.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    y, aux = moe_ffn(xn, lp, cfg)
+    y, aux = moe_ffn(xn, lp, cfg, rules)
     if cfg.dense_residual:
         y = y + L.mlp_swiglu(xn, lp)
     return x + y, aux
 
 
-def moe_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True):
+def moe_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True,
+              rules=None):
     return moe_mlp(T.attn_block(x, lp, cfg, positions, causal=causal), lp,
-                   cfg)
+                   cfg, rules)
 
 
 def _stacked(params: dict, cfg: ModelConfig) -> dict:
@@ -121,8 +140,9 @@ def _stacked(params: dict, cfg: ModelConfig) -> dict:
     return {k: params[k] for k in keys}
 
 
-def forward(params: dict, cfg: ModelConfig, tokens):
-    """Logits and the aux loss averaged over the layers."""
+def forward(params: dict, cfg: ModelConfig, tokens, rules=None):
+    """Logits and the aux loss averaged over the layers; ``rules`` group
+    the tokens by dp rank (the module docstring)."""
     cd = TORCH_DTYPES[cfg.compute_dtype]
     b, s = tokens.shape
     x = L.embed_tokens(params["embed"], tokens, cd)
@@ -130,7 +150,7 @@ def forward(params: dict, cfg: ModelConfig, tokens):
 
     def one_layer(carry, lp):
         x, aux_sum = carry
-        y, aux = moe_block(x, lp, cfg, positions)
+        y, aux = moe_block(x, lp, cfg, positions, rules=rules)
         return y.to(x.dtype), aux_sum + aux
 
     aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -140,8 +160,8 @@ def forward(params: dict, cfg: ModelConfig, tokens):
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
-            aux_weight: float = AUX_WEIGHT):
-    logits, aux = forward(params, cfg, batch["tokens"])
+            aux_weight: float = AUX_WEIGHT, rules=None):
+    logits, aux = forward(params, cfg, batch["tokens"], rules)
     return L.xent_loss(logits, batch["labels"]) + aux_weight * aux
 
 

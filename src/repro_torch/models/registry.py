@@ -48,7 +48,12 @@ def init_params(cfg: ModelConfig, seed: int, device) -> dict:
     return common.init_params(param_specs(cfg), seed, device)
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, rules=None):
+    """The loss of this rank's rows. ``rules`` reach the MoE family alone
+    (its token groups are the dp ranks'); every other family computes
+    each row on its own, the same on any mesh."""
+    if cfg.family == "moe":
+        return family_module(cfg).loss_fn(params, cfg, batch, rules=rules)
     return family_module(cfg).loss_fn(params, cfg, batch)
 
 

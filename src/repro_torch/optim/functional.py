@@ -17,6 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import adamw_ref, adamw_scalars
@@ -141,6 +142,21 @@ def init_state(params: dict) -> TrainState:
 def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in tree.values()))
+
+
+def sharded_global_norm(owned: dict, counted, group) -> torch.Tensor:
+    """The global norm of a gradient tree split over the ranks of
+    ``group``: each rank sums the squares of the leaves of ``owned`` whose
+    names are in ``counted`` (its slices, and a replicated leaf on one
+    rank only, so that it is counted once), and one all-reduce adds the
+    ranks' sums."""
+    some = next(iter(owned.values()))
+    sq = torch.zeros((), dtype=torch.float32, device=some.device)
+    for k, x in owned.items():
+        if k in counted:
+            sq = sq + torch.sum(torch.square(x.float()))
+    torch.distributed.all_reduce(sq, group=group)
+    return torch.sqrt(sq)
 
 
 def clip_scale(cfg: OptimizerConfig, grad_norm: float) -> float:

@@ -7,15 +7,19 @@ each rank owns a disjoint slice of the final reduced gradients
 (`repro_torch.dist.collectives.ring_all_reduce_rs_ag`).
 
 For each leaf the largest dim divisible by the DP extent is sharded (leaves
-with no such dim stay replicated — they are tiny). This module is the shape
-logic; laying the state out over ranks by these specs
-(``constrain_zero1``) is ROADMAP item 11b.
+with no such dim stay replicated — they are tiny). ``constrain_zero1``
+cuts a tree of full tensors to this rank's ZeRO-1 slices and
+``gather_zero1`` is the way back; `StateSharding` holds, per leaf, where a
+trainer's params and its mu, nu and reduced gradient live over the ranks.
 """
 from __future__ import annotations
 
 import math
 
-from repro_torch.dist.sharding import P, ShardingRules, dp_axes
+import torch
+
+from repro_torch.dist.sharding import (P, NamedSharding, ShardingRules,
+                                       dp_axes, dp_size)
 
 
 def zero1_spec(shape, param_spec: P, mesh) -> P:
@@ -47,3 +51,60 @@ def zero1_shardings(specs: dict, rules: ShardingRules) -> dict:
                              rules.spec(*ps.logical, dims=ps.shape),
                              rules.mesh)
             for name, ps in specs.items()}
+
+
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` (a slice never aliases the full tensor)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def constrain_zero1(tree: dict, specs: dict, rules: ShardingRules) -> dict:
+    """Each full leaf of ``tree`` cut to this rank's ZeRO-1 slice, as its
+    own contiguous copy (the reference's constraint to the ZeRO-1 layout,
+    the RS point). ``specs`` are the leaves' ParamSpecs."""
+    z = zero1_shardings(specs, rules)
+    return {k: _own(NamedSharding(rules.mesh, z[k]).local(x))
+            for k, x in tree.items()}
+
+
+def gather_zero1(tree: dict, specs: dict, rules: ShardingRules) -> dict:
+    """The way back from `constrain_zero1`: every full leaf, on every rank
+    (collective over the dp ranks)."""
+    z = zero1_shardings(specs, rules)
+    return {k: NamedSharding(rules.mesh, z[k]).gather(x)
+            for k, x in tree.items()}
+
+
+class StateSharding:
+    """Where each leaf of a trainer state lives on ``rules``' mesh.
+
+    ``params[k]`` is the leaf's param sharding (its logical spec: cut over
+    the dp axes only for an FSDP ``wemb`` dim), ``state[k]`` that of its
+    mu, nu and reduced gradient: the ZeRO-1 spec where ``zero1`` (the
+    reference's ``cfg.zero1``), else the param spec. ``specs`` are the
+    leaves' ParamSpecs, in the tree's order.
+    """
+
+    def __init__(self, specs: dict, rules: ShardingRules,
+                 zero1: bool = True):
+        self.mesh = rules.mesh
+        self.shapes = {k: tuple(ps.shape) for k, ps in specs.items()}
+        self.params = {k: rules.sharding(*ps.logical, dims=ps.shape)
+                       for k, ps in specs.items()}
+        self.state = ({k: NamedSharding(self.mesh, spec)
+                       for k, spec in zero1_shardings(specs, rules).items()}
+                      if zero1 else dict(self.params))
+        self.n = dp_size(self.mesh)
+
+    def local(self, params: dict, mu: dict, nu: dict) -> tuple:
+        """(params, mu, nu) of full trees cut to this rank's slices, each
+        an own contiguous copy on the tree's device."""
+        return ({k: _own(self.params[k].local(x)) for k, x in params.items()},
+                {k: _own(self.state[k].local(x)) for k, x in mu.items()},
+                {k: _own(self.state[k].local(x)) for k, x in nu.items()})
+
+    def full(self, params: dict, mu: dict, nu: dict) -> tuple:
+        """The way back: full trees on every rank (collective)."""
+        return ({k: self.params[k].gather(x) for k, x in params.items()},
+                {k: self.state[k].gather(x) for k, x in mu.items()},
+                {k: self.state[k].gather(x) for k, x in nu.items()})

@@ -11,31 +11,46 @@ baselines read the state through ``StepEvent.state_fn`` instead, and the
 loop skips the capture for them. On an injected failure the loop restores
 the checkpointer's latest checkpoint and replays from its step, onto new
 sharding rules where the caller asks for an elastic restart.
+
+On ``rules`` over more than one rank every rank runs ``train`` in its own
+process (`_train_over_ranks`). Global rank 0 hosts the checkpointer and
+its shadow, where the reference's single controller holds the host tree.
+The capture is the owned slices (`RankCapture`): each dp rank of model
+index 0 packs only the reduced slices its reduce-scatter left it, a
+replicated leaf is sent by dp rank 0 alone, and the slices go over the dp
+group to rank 0, which assembles the bucket flats, so every reduced
+element reaches the shadow exactly once.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs as _obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.buckets import (BucketLayout, alloc_flat, bucket_dtype,
-                                      layout_for_tree, pack_bucket_into)
+                                      build_buckets, layout_for_tree,
+                                      pack_bucket_into)
 from repro_torch.core.channel import GradientChannel, StepEvent, to_host
 from repro_torch.core.checkpoint import (BaseCheckpointer,
                                          CheckmateCheckpointer,
                                          NoCheckpointer)
-from repro_torch.core.recovery import (FailurePlan, checkpoint_from_state,
+from repro_torch.core.recovery import (FailurePlan, broadcast_checkpoint,
+                                       checkpoint_from_state,
                                        placement_device,
                                        state_from_checkpoint)
 from repro_torch.core.shadow import ShadowCluster
 from repro_torch.data.synthetic import SyntheticStream, device_batch
 from repro_torch.device import resolve
-from repro_torch.dist.sharding import ShardingRules, make_smoke_mesh
+from repro_torch.dist.sharding import (ShardingRules, dp_axes,
+                                       make_smoke_mesh)
+from repro_torch.kernels import ops
 from repro_torch.optim.functional import OptimizerConfig, TrainState
 from repro_torch.train.step import build_train_step, make_train_state
 
@@ -110,6 +125,81 @@ class Capture:
         return to_host(flats) if self.host else flats
 
 
+def _flag_straggler(stats: LoopStats, step: int, iter_time: float, ema,
+                    decay: float, factor: float) -> float:
+    """Straggler observability: flag ``step`` in ``stats`` when its
+    iteration is slower than ``factor`` times the EMA of earlier ones;
+    returns the EMA updated with it (weight ``decay``)."""
+    if ema is None:
+        return iter_time
+    if iter_time > factor * ema:
+        stats.straggler_flags.append(step)
+    return decay * ema + (1 - decay) * iter_time
+
+
+class RankCapture:
+    """The capture over ranks: this rank's owned reduced slices -> global
+    rank 0, which packs the full bucket flats (a `Capture`).
+
+    ``sharding`` is the step's `StateSharding`. Each dp rank of model
+    index 0 packs the slices it owns (one pack launch into one flat, each
+    slice with its cut dim in front: the ring's chunk) and the flats are
+    gathered over the dp group to rank 0; a leaf no rank owns a slice of
+    (replicated) is taken from rank 0's own reduced leaf. Ranks of another
+    model index send nothing. ``marks`` lists what this rank contributed
+    at the last call, as (leaf, cut dim or None, first, end) along that
+    dim (None: the whole leaf).
+    """
+
+    def __init__(self, sharding, layout: BucketLayout, device: torch.device,
+                 host: bool = True):
+        self.sh = sharding
+        self.device = device
+        mesh = sharding.mesh
+        self.dp = dp_axes(mesh)
+        self.group = mesh.group_over(self.dp)
+        self.index = mesh.coordinate(self.dp)
+        self.sends = all(c == 0 for a, c in mesh.coords.items()
+                         if a not in self.dp)
+        self.cut = [k for k, z in sharding.state.items() if z.n > 1]
+        self.whole = [k for k, z in sharding.state.items() if z.n == 1]
+        self.sizes = [math.prod(sharding.shapes[k]) // sharding.n
+                      for k in self.cut]
+        self.offsets = [sum(self.sizes[:j]) for j in range(len(self.cut))]
+        self.host_rank = dist.get_rank() == 0
+        self.inner = Capture(layout, device, host) if self.host_rank \
+            else None
+        self.marks: list = []
+
+    def __call__(self, owned: dict) -> Optional[dict]:
+        self.marks = []
+        if not self.sends:
+            return None
+        n, sh = self.sh.n, self.sh
+        flat = alloc_flat(sum(self.sizes), torch.float32, self.device)
+        if self.cut:
+            ops.pack_bucket([owned[k].movedim(sh.state[k].dim, 0).reshape(-1)
+                             for k in self.cut], self.offsets, flat)
+        for k in self.cut:
+            d = sh.state[k].dim
+            s = sh.shapes[k][d] // n
+            self.marks.append((k, d, self.index * s, (self.index + 1) * s))
+        if self.index == 0:
+            self.marks += [(k, None, 0, None) for k in self.whole]
+        flats = ([torch.empty_like(flat) for _ in range(n)]
+                 if self.host_rank else None)
+        dist.gather(flat, flats, dst=0, group=self.group)
+        if not self.host_rank:
+            return None
+        full = {k: owned[k] for k in self.whole}
+        for k, o, size in zip(self.cut, self.offsets, self.sizes):
+            d, shape = sh.state[k].dim, sh.shapes[k]
+            front = (shape[d],) + shape[:d] + shape[d + 1:]
+            full[k] = torch.cat([f[o:o + size] for f in flats]).reshape(
+                front).movedim(0, d)
+        return self.inner(full)
+
+
 def train(cfg: ModelConfig, *,
           steps: int,
           batch: int,
@@ -141,7 +231,14 @@ def train(cfg: ModelConfig, *,
     ones (weight ``straggler_ema``) is flagged in ``stats.straggler_flags``.
 
     ``rules`` are the run's sharding rules (default: the one-rank smoke
-    mesh on ``device``; a mesh of more ranks raises, ROADMAP item 11b).
+    mesh on ``device``). On a mesh of more than one rank every rank calls
+    ``train`` with the same arguments, in its own process; global rank 0
+    hosts the checkpointer (``checkpointer`` or the one ``channel``
+    builds) and the other ranks pass no ``checkpointer`` (they ignore
+    ``channel``). There the checkpointer is Checkmate or none: a
+    copy-persist baseline would need every rank's state at its own
+    moments, which is not ported. ``stats.losses`` are the global losses;
+    the returned state is this rank's slices.
     ``elastic_rules`` is the elastic-restart path (`repro_torch.core
     .elastic`): rules for the post-failure mesh, or a callable
     ``(failed_step) -> rules | None`` (None keeps the current layout). On
@@ -151,9 +248,22 @@ def train(cfg: ModelConfig, *,
     ``elastic-reshard`` stall stage) and the capture against the new
     plane's layout, lands the checkpoint on the new mesh's device, and
     resumes; the switch fires once. The data stream needs no rebuild: it
-    is the global batch as a pure function of (seed, step).
+    is the global batch as a pure function of (seed, step). Over ranks,
+    every rank calls ``elastic_rules`` (building a mesh is collective); a
+    rank outside the new mesh leaves and returns (None, stats).
     """
     device = resolve(device)
+    if rules is not None and rules.mesh.size > 1:
+        if placement_device(rules) != device:
+            raise ValueError(f"rules on {rules.mesh.device}, run on {device}")
+        return _train_over_ranks(
+            cfg, steps=steps, batch=batch, seq=seq, opt=opt, lr_fn=lr_fn,
+            checkpointer=checkpointer, channel=channel,
+            shadow_nodes=shadow_nodes, shadow_async=shadow_async,
+            failure_plan=failure_plan, seed=seed,
+            straggler_ema=straggler_ema, straggler_factor=straggler_factor,
+            state=state, step_hook=step_hook, device=device, rules=rules,
+            elastic_rules=elastic_rules)
     if rules is None:
         rules = ShardingRules(make_smoke_mesh(device))
     elif placement_device(rules) != device:
@@ -231,14 +341,8 @@ def train(cfg: ModelConfig, *,
         stats.iter_times.append(iter_time)
         stats.losses.append(loss)
 
-        # straggler observability: EMA-based slow-iteration flag
-        if ema_iter is None:
-            ema_iter = iter_time
-        else:
-            if iter_time > straggler_factor * ema_iter:
-                stats.straggler_flags.append(step)
-            ema_iter = (straggler_ema * ema_iter
-                        + (1 - straggler_ema) * iter_time)
+        ema_iter = _flag_straggler(stats, step, iter_time, ema_iter,
+                                   straggler_ema, straggler_factor)
 
         flats = None
         if capture is not None:
@@ -257,4 +361,138 @@ def train(cfg: ModelConfig, *,
             step_hook(step, state, stats)
 
     checkpointer.finalize()
+    return state, stats
+
+
+def _train_over_ranks(cfg: ModelConfig, *, steps, batch, seq, opt, lr_fn,
+                      checkpointer, channel, shadow_nodes, shadow_async,
+                      failure_plan, seed, straggler_ema, straggler_factor,
+                      state, step_hook, device, rules, elastic_rules):
+    """`train` on a mesh of more than one rank, in this rank's process."""
+    mesh = rules.mesh
+    rank0 = dist.get_rank() == 0
+    if not mesh.is_member or 0 not in mesh.ranks:
+        raise ValueError(f"train over {mesh.ranks}: this rank and global "
+                         f"rank 0 (the shadow's host) must be in the mesh")
+    failure_plan = failure_plan or FailurePlan()
+    stream = SyntheticStream(cfg, batch, seq, seed=seed)
+    if state is None:
+        state = make_train_state(cfg, seed, device, rules)
+    step_fn = build_train_step(cfg, opt, lr_fn, rules)
+    specs = step_fn.sharding
+    layout = build_buckets([(k, specs.shapes[k], "float32")
+                            for k in state.params])
+    params, mu, nu = specs.full(state.params, state.mu, state.nu)
+    error = None
+    if not rank0 and checkpointer is not None:
+        error = "over ranks only global rank 0 hosts a checkpointer"
+    elif rank0 and channel is not None and checkpointer is not None:
+        error = "pass either checkpointer= or channel=, not both"
+    elif rank0:
+        if channel is not None:
+            shadow = ShadowCluster(layout, opt, n_nodes=shadow_nodes,
+                                   async_mode=shadow_async, device=device)
+            shadow.bootstrap(params, mu, nu, state.step)
+            checkpointer = CheckmateCheckpointer(shadow, channel=channel)
+        checkpointer = checkpointer or NoCheckpointer()
+        if not (checkpointer.consumes_grads
+                or isinstance(checkpointer, NoCheckpointer)):
+            error = (f"{type(checkpointer).__name__} over ranks: only "
+                     f"Checkmate or no checkpointer is ported")
+    del params, mu, nu
+    # every rank learns every rank's error (all raise together) and rank
+    # 0's capture: whether its checkpointer consumes gradients, and on
+    # the host or the card
+    flags = [None] * len(mesh.ranks)
+    dist.all_gather_object(flags, (
+        error, bool(getattr(checkpointer, "consumes_grads", False)),
+        not getattr(getattr(checkpointer, "channel", None), "device_flats",
+                    False)), group=mesh.mesh_group)
+    errors = [f[0] for f in flags if f[0] is not None]
+    if errors:
+        raise ValueError(errors[0])
+    _, consumes, host = flags[0]
+
+    def make_capture(step_fn):
+        if not consumes:
+            return None
+        plane = getattr(checkpointer, "shadow", None)
+        return RankCapture(step_fn.sharding,
+                           plane.layout if plane is not None else layout,
+                           device, host=host)
+
+    capture = make_capture(step_fn)
+    stats = LoopStats(checkpointer=checkpointer if rank0 else None)
+    ema_iter = None
+    step = int(state.step)
+    ob = _obs.get()
+    while step < steps:
+        dbatch = device_batch(stream.batch_at(step), device, rules,
+                              cfg.microbatches)
+        if failure_plan.should_fail(step + 1):
+            stats.failures += 1
+            restored = None
+            if rank0:
+                with ob.tracer.span("recovery.restore", track="recovery",
+                                    args={"failed_step": step + 1}):
+                    restored = checkpointer.restore()
+            ok = [restored is not None]
+            dist.broadcast_object_list(ok, src=0, group=rules.mesh.mesh_group)
+            if not ok[0]:
+                raise TrainingFailure(f"injected failure at step {step + 1} "
+                                      f"and no checkpoint to restore")
+            state = None
+            nr = (elastic_rules(step + 1) if callable(elastic_rules)
+                  else elastic_rules)
+            if nr is not None and nr is not rules:
+                rules, device = nr, placement_device(nr)
+                elastic_rules = None     # the switch fires once
+                if not rules.mesh.is_member:
+                    return None, stats   # this rank left the world
+                if rank0 and isinstance(checkpointer, CheckmateCheckpointer):
+                    from repro_torch.core.elastic import rebuild_shadow
+                    checkpointer.reconfigure(rebuild_shadow(
+                        checkpointer.shadow, restored, device=device))
+                step_fn = build_train_step(cfg, opt, lr_fn, rules)
+                capture = make_capture(step_fn)
+            restored = broadcast_checkpoint(restored, rules.mesh)
+            state = state_from_checkpoint(restored, device, rules, cfg)
+            step = int(restored["step"])
+            del restored
+            stats.recoveries += 1
+            stats.recovered_at.append(step)
+            ob.tracer.instant("recovery.resume", track="recovery",
+                              args={"resumed_step": step})
+            ob.metrics.counter("train_recoveries_total",
+                               "Recoveries from injected failures").inc(1)
+            continue
+        t0 = time.perf_counter()
+        with ob.tracer.span("step.compute", args={"step": step + 1}):
+            state, metrics, grads = step_fn(state, dbatch)
+            loss = float(metrics["loss"])
+        iter_time = time.perf_counter() - t0
+        step += 1
+        stats.steps += 1
+        stats.iter_times.append(iter_time)
+        stats.losses.append(loss)
+        ema_iter = _flag_straggler(stats, step, iter_time, ema_iter,
+                                   straggler_ema, straggler_factor)
+        flats = None
+        if capture is not None:
+            t1 = time.perf_counter()
+            with ob.tracer.span("capture.d2h", args={"step": step}):
+                flats = capture(grads)
+            stats.capture_times.append(time.perf_counter() - t1)
+        del grads
+        stall = 0.0
+        if rank0:
+            stall = checkpointer.on_step(StepEvent(
+                step=step, flats=flats, lr=metrics["lr"],
+                grad_scale=metrics["grad_scale"], iter_time=iter_time))
+        stats.stall_times.append(stall)
+        ob.metrics.counter("train_steps_total", "Completed iterations").inc(1)
+        if step_hook is not None:
+            step_hook(step, state, stats)
+    if rank0:
+        checkpointer.finalize()
     return state, stats

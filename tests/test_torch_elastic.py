@@ -291,14 +291,15 @@ def _rules_over(size, device="cpu"):
         "device": torch.device(device)})())
 
 
-def test_more_than_one_rank_raises_naming_item_11b():
-    from repro_torch.core.recovery import recover
+def test_more_than_one_rank_raises_naming_item_11b(tmp_path):
+    """Once a raise naming item 11b, now a run: on two gloo ranks,
+    train(rules=) over a (2, 1) mesh with a failure and recover(
+    new_rules=) onto it (``tests/_torch_dp_workers.py::two_ranks``: each
+    rank's restored state is its trainer's slices bit for bit). Rules on
+    another device than the run's still raise."""
+    from _torch_spawn import spawn
     from repro_torch.train.loop import train
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        recover(None, new_rules=_rules_over(4))
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        train(_tiny(), steps=1, batch=2, seq=16, device="cpu",
-              rules=_rules_over(2))
+    spawn("_torch_dp_workers", "two_ranks", 2, tmp_path)
     with pytest.raises(ValueError, match="rules on meta, run on cpu"):
         train(_tiny(), steps=1, batch=2, seq=16, device="cpu",
               rules=_rules_over(1, "meta"))

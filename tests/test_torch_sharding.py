@@ -34,6 +34,38 @@ class _FakeMesh:
         self.axis_names = tuple(shape)
 
 
+class _FakeRank(_FakeMesh):
+    """Rank ``rank`` of a stand-in mesh, row-major: its coordinates, and
+    an ``all_gather`` that returns the slices in ``peers`` of the ranks
+    that differ from it only along the gathered axes."""
+
+    def __init__(self, shape, rank):
+        super().__init__(shape)
+        self.rank = rank
+        self.coords = dict(zip(self.axis_names, np.unravel_index(
+            rank, tuple(shape.values()))))
+        self.peers = {}
+
+    def extent(self, axes):
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def coordinate(self, axes):
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + int(self.coords[a])
+        return i
+
+    def all_gather(self, t, axes):
+        dims = tuple(self.shape.values())
+        out = []
+        for r in range(int(np.prod(dims))):
+            c = dict(zip(self.axis_names, np.unravel_index(r, dims)))
+            if all(c[a] == self.coords[a] for a in self.axis_names
+                   if a not in axes):
+                out.append((tuple(int(c[a]) for a in axes), self.peers[r]))
+        return [t for _, t in sorted(out, key=lambda e: e[0])]
+
+
 MESHES = {
     "1x1": {"data": 1, "model": 1},
     "4x2": {"data": 4, "model": 2},
@@ -146,10 +178,29 @@ def test_smoke_mesh_and_shard():
     assert dp_size(mesh) == 1 and rules.axis_size("batch") == 1
     x = torch.arange(6.0).reshape(2, 3)
     assert rules.shard(x, "batch", "emb") is x
-    big = ShardingRules(_FakeMesh({"data": 4, "model": 2}))
-    big.mesh.size = 8
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        big.shard(x, "batch", "emb")
+    # on a 4 x 2 mesh each rank's local() is its dp slice (the model dim
+    # whole), and gather() over the data ranks rebuilds the tensor
+    y = torch.arange(8 * 8 * 3, dtype=torch.float32).reshape(8, 8, 3)
+    ranks = [_FakeRank({"data": 4, "model": 2}, r) for r in range(8)]
+    for fsdp, logical, spec, dim in (
+            (False, ("batch", "heads", None), P("data", "model"), 0),
+            (True, ("heads", "wemb"), P("model", "data"), 1),
+            (False, ("heads", "wemb"), P("model"), None)):
+        shs = [ShardingRules(m, fsdp=fsdp).sharding(*logical, dims=y.shape)
+               for m in ranks]
+        for m, sh in zip(ranks, shs):
+            assert sh.spec == spec and sh.dim == dim
+            want = y if dim is None else \
+                y.narrow(dim, m.coords["data"] * y.shape[dim] // 4,
+                         y.shape[dim] // 4)
+            got = sh.local(y)
+            assert torch.equal(got, want)
+            assert torch.equal(ShardingRules(m, fsdp=fsdp).shard(
+                y, *logical), want)
+        for m in ranks:
+            m.peers = {p.rank: shs[p.rank].local(y) for p in ranks}
+        for m, sh in zip(ranks, shs):
+            assert torch.equal(sh.gather(sh.local(y)), y)
     # a mesh of more than one rank needs a process-group mesh behind it
     with pytest.raises(ValueError, match="DeviceMesh"):
         Mesh((2, 1), ("data", "model"), device="cpu")
