@@ -49,6 +49,23 @@ Phases, in order; any failed check raises and the script exits nonzero:
              pack launched; both step times beside the card's name and
              power limit. One card runs one rank: the n > 1 schedules
              are held on gloo ranks by the CPU tests.
+4c. dryrun — the port's dry run (``python -m repro_torch.launch.dryrun
+             --arch tinyllama-1.1b``, and again with ``--multi-pod``) in
+             two subprocesses that see no card (a fake world of 256 or
+             512 ranks must not share a process with 4b's NCCL one),
+             side by side: tinyllama-1.1b at full
+             width and depth, train_4k, prefill_32k and decode_32k on the
+             single- and multi-pod meshes, each cell ok (long_500k
+             skipped), train cells with collective bytes, the multi-pod
+             train cell's FLOPs a rank half the single-pod one's within
+             2% (8 rows a rank, not 16); each cell's three roofline terms,
+             bound, useful-FLOPs ratio and HBM bytes a rank printed, a
+             model at the H100's data-sheet peaks. Meanwhile, on the
+             card, the yardstick: ``analyze_step`` at 4b's cut (2 layers,
+             8 x 2048, 4 microbatches, bf16) on a one-rank mesh beside one
+             real step after a warm-up one: the predicted arguments +
+             temporaries within 25% of the step's peak allocation, and
+             the roofline step no longer than the measured one.
 5. checkpointers — the training CLI (``repro_torch.launch.train.run``)
              at full width and depth, ``--freq 1``, 5 steps, once per
              checkpointer: none; checkmate (2 async nodes, lag bound 2);
@@ -185,7 +202,8 @@ Phases, in order; any failed check raises and the script exits nonzero:
              figure model's share of the bf16 peak at its measured step
              (not gated).
 
-Output: a ``main_path`` JSON line, a ``ranks`` JSON line, ``flash_d128``, ``flash_f32_d128``,
+Output: a ``main_path`` JSON line, a ``ranks`` JSON line, a ``dryrun``
+JSON line, ``flash_d128``, ``flash_f32_d128``,
 ``flash_bf16_d80``, ``flash_prefill`` (with phase 9's dense prefill
 launches) and ``pack_host`` timing lines, a ``kernels`` JSON line,
 a ``checkpointers`` JSON line, a ``durability`` JSON line, a ``harness``
@@ -1015,6 +1033,175 @@ def phase_ranks(cfg) -> dict:
           f"losses, states and checkpoints bitwise equal; {out['card']}",
           flush=True)
     return out
+
+
+# -- phase 4c ----------------------------------------------------------------
+
+# The dry run's cells: tinyllama-1.1b at full width and depth, every shape,
+# both production meshes (long_500k is skipped for a dense model); each
+# traced on the CPU in a subprocess that sees no card, since a fake world
+# must not share a process with phase 4b's NCCL one.
+DRYRUN_ARCH = "tinyllama-1.1b"
+DRYRUN_TIMEOUT_S = 300
+# the yardstick's tolerance: predicted bytes (arguments + temporaries)
+# against the card's peak allocation over one step
+DRYRUN_MEMORY_RTOL = 0.25
+
+
+def _start_dryrun(out: str, mesh_flags: list) -> subprocess.Popen:
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_ARCH, *mesh_flags, "--out", out], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def dryrun_yardstick(cfg) -> dict:
+    """`analyze_step` at phase 4b's cut on a one-rank mesh beside one real
+    step on the card: the predicted bytes (arguments + temporaries)
+    within DRYRUN_MEMORY_RTOL of the step's peak allocation (above what
+    was allocated before its state was made), and the roofline step no
+    longer than the measured one."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import SyntheticStream, device_batch
+    from repro_torch.dist.sharding import ShardingRules, make_smoke_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import Roofline, model_flops_for
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models import registry
+    from repro_torch.optim.functional import OptimizerConfig
+    from repro_torch.train.step import (abstract_train_state,
+                                        build_train_step, make_train_state)
+    cut = dataclasses.replace(cfg, num_layers=RANKS_LAYERS)
+    shape = ShapeConfig("phase4b", MAIN_RUN["seq"], MAIN_RUN["batch"],
+                        "train")
+    rules = ShardingRules(make_smoke_mesh("cpu"))
+    opt = OptimizerConfig()
+    a = analyze_step(build_train_step(cut, opt, lambda s: 1e-3, rules),
+                     abstract_train_state(cut, rules),
+                     registry.input_specs(cut, shape, rules))
+    del a["result"]
+    rf = Roofline(arch=cut.name, shape=shape.name, mesh="one rank", chips=1,
+                  flops_per_device=a["flops_per_device"],
+                  bytes_per_device=a["bytes_per_device"],
+                  collective_bytes_per_device=a["collective_bytes_per_device"],
+                  model_flops=model_flops_for(cut, shape), per_collective={})
+    predicted = a["memory"]["argument_bytes"] + a["memory"]["temp_bytes"]
+
+    _free()
+    base = torch.cuda.memory_allocated()
+    state = make_train_state(cut, 0, "cuda")
+    batch = device_batch(SyntheticStream(cut, MAIN_RUN["batch"],
+                                         MAIN_RUN["seq"]).batch_at(0), "cuda")
+    step = build_train_step(cut, opt, lambda s: 1e-3)
+    out = step(state, batch)             # warm-up: cuBLAS handles, workspace
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = step(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = ops.launch_counts()
+    del out, state, batch
+    _free()
+    err = predicted / peak - 1.0
+    flash = 2 * cut.num_layers * cut.microbatches      # forward and remat
+    check(launches["flash_attention_wgmma"] == flash
+          and launches["fused_adamw"] == a["kernels"]["fused_adamw"]["calls"]
+          and a["kernels"]["flash_attention"]["calls"] == flash,
+          f"dryrun: the card's step launched {launches}, the analysis "
+          f"recorded {a['kernels']} (flash {flash})")
+    check(abs(err) <= DRYRUN_MEMORY_RTOL,
+          f"dryrun: predicted {predicted} bytes vs the card's peak {peak} "
+          f"({err:+.1%}; tolerance {DRYRUN_MEMORY_RTOL:.0%})")
+    check(rf.step_time_s <= step_s,
+          f"dryrun: roofline step {rf.step_time_s * 1e3:.2f} ms beats the "
+          f"measured {step_s * 1e3:.2f} ms")
+    return {"model": cut.name, "layers": cut.num_layers,
+            "batch": MAIN_RUN["batch"], "seq": MAIN_RUN["seq"],
+            "microbatches": cut.microbatches,
+            "predicted_bytes": predicted, "memory": a["memory"],
+            "peak_bytes": peak, "memory_err": err,
+            "flops": a["flops_per_device"], "bytes": a["bytes_per_device"],
+            "roofline": {k: v for k, v in rf.row().items()
+                         if k in ("compute_s", "memory_s", "bound",
+                                  "step_time_s")},
+            "step_ms": step_s * 1e3, "launches": launches,
+            "roofline_share": rf.step_time_s / step_s}
+
+
+def phase_dryrun(cfg) -> dict:
+    """The port's dry run of DRYRUN_ARCH on the two production meshes, a
+    subprocess each, while the yardstick runs on the card; every traced
+    cell ok, train cells with collective bytes, the multi-pod train
+    cell's FLOPs per rank half the single-pod one's within 2%."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    recs, procs = [], {}
+    try:
+        for mesh, flags in (("single", []), ("multi", ["--multi-pod"])):
+            out = os.path.join(tmp, f"{mesh}.json")
+            procs[out] = _start_dryrun(out, flags)
+        yard = dryrun_yardstick(cfg)
+        for out, proc in procs.items():
+            log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            check(proc.returncode == 0,
+                  f"dryrun: the CLI exited {proc.returncode}: {log[-3000:]}")
+            with open(out) as f:
+                recs += json.load(f)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    cells = {}
+    for r in recs:
+        key = f"{r['shape']}/{r['mesh']}"
+        if r["shape"] == "long_500k":
+            check(r["status"] == "skipped", f"dryrun: {key}: {r}")
+            continue
+        check(r["status"] == "ok", f"dryrun: {key}: {r}")
+        if r["shape"] == "train_4k":
+            check(r["collective_s"] > 0 and r["per_collective"]["send"] > 0,
+                  f"dryrun: {key}: no collective bytes")
+        cells[key] = {"compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                      "collective_s": r["collective_s"], "bound": r["bound"],
+                      "useful_flops_ratio": r["useful_flops_ratio"],
+                      "hbm_gb_per_rank": r["bytes_per_device_hbm"] / 1e9,
+                      "flops_per_rank": r["hlo_flops_total"] / r["chips"],
+                      "trace_s": r["trace_s"]}
+    check(len(cells) == 6, f"dryrun: cells {sorted(cells)}")
+    half = (cells["train_4k/multi"]["flops_per_rank"]
+            / cells["train_4k/single"]["flops_per_rank"])
+    check(abs(half / 0.5 - 1.0) <= 0.02,
+          f"dryrun: multi-pod train FLOPs a rank {half:.4f} of the "
+          f"single-pod one's, not half within 2%")
+    for key, c in cells.items():
+        print(f"dryrun: {DRYRUN_ARCH} {key}: compute {c['compute_s']:.4f} "
+              f"memory {c['memory_s']:.4f} collective "
+              f"{c['collective_s']:.4f} s, {c['bound']}-bound, useful "
+              f"{c['useful_flops_ratio']:.3f}, HBM {c['hbm_gb_per_rank']:.2f} "
+              f"GB a rank (a model at H100 peaks, traced on the CPU in "
+              f"{c['trace_s']} s)", flush=True)
+    print(f"dryrun: yardstick at {yard['layers']} layers, {yard['batch']} x "
+          f"{yard['seq']}: predicted {yard['predicted_bytes'] / 1e9:.3f} GB, "
+          f"card peak {yard['peak_bytes'] / 1e9:.3f} GB "
+          f"({yard['memory_err']:+.1%}); roofline step "
+          f"{yard['roofline']['step_time_s'] * 1e3:.2f} ms "
+          f"({yard['roofline']['bound']}-bound), measured "
+          f"{yard['step_ms']:.2f} ms, share {yard['roofline_share']:.3f}; "
+          f"{card_name_power()}", flush=True)
+    return {"arch": DRYRUN_ARCH, "cells": cells,
+            "multi_over_single_flops": half, "yardstick": yard,
+            "card": card_name_power()}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -2908,6 +3095,8 @@ def main():
     lap("main")
     ranks = phase_ranks(cfg)
     lap("ranks")
+    dryrun = phase_dryrun(cfg)
+    lap("dryrun")
     # each kernel's launches on its path: the f32 flash kernel's is phase
     # 3's full-width run, every other kernel's phase 4
     for r in rows:
@@ -2938,6 +3127,7 @@ def main():
             "other_bound_unit")
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"ranks": ranks}))
+    print(json.dumps({"dryrun": dryrun}))
     for label, r in flash_extra.items():
         print(json.dumps({label: {k: r[k] for k in keys + more if k in r}}))
     print(json.dumps({"pack_host": pack_host}))

@@ -18,8 +18,10 @@ multicast_overhead with the channel send overhead). Prints
   multicast_overhead -> Fig 10 (replication factor sweep)
   fabric_sweep       -> Fig 10 at 512 ranks + topology/failure sweeps
   kernels            -> the Hopper kernels vs their plain versions
-The JAX runner's ``roofline_table`` formats the XLA dry run's results,
-which the port does not have yet.
+The roofline table is a script of its own, as the root
+``benchmarks/roofline_table.py`` is (the JAX runner has no entry for it):
+``python -m repro_torch.benchmarks.roofline_table`` formats the port's
+dry run (`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 

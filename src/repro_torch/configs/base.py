@@ -170,8 +170,9 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
 @dataclass(frozen=True)
 class RunConfig:
     """One (arch, shape) cell: ``resolve`` gives the config with its
-    overrides and the shape. The port has no dry run and no mesh, so
-    ``multi_pod`` and ``remat_policy`` are kept for equality only."""
+    overrides and the shape. ``multi_pod`` and ``remat_policy`` are kept
+    for equality only: the dry run (`repro_torch.launch.dryrun`) takes
+    its mesh as an argument, and the port's remat is per layer, full."""
     arch: str
     shape: str
     multi_pod: bool = False

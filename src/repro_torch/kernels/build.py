@@ -82,6 +82,18 @@ class LaunchCounter:
             self.value = 0
 
 
+# the step analyses listening (`repro_torch.launch.step_analysis`)
+_work_sinks: list = []
+
+
+def record_work(kernel: str, flops: float, nbytes: float):
+    """A wrapper called on meta tensors reports the work its kernel would
+    do (a meta tensor has no data to launch on): the FLOPs and the bytes
+    it must move, to every step analysis that is listening."""
+    for sink in _work_sinks:
+        sink(kernel, flops, nbytes)
+
+
 def nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):

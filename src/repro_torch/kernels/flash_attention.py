@@ -7,6 +7,10 @@ of 8 up to 128, and the mma.sync kernel (``csrc/flash_attention.cu``, 3xTF32)
 for f32 and for bf16 at any other head_dim up to 256. Each counts its own
 launches.
 
+On meta tensors (the dry run) it returns ``o`` and ``lse`` as empty meta
+tensors of the kernel's shapes and records the kernel's work
+(`flash_work`) into the step analysis listening, if any.
+
 Returns ``(o, lse)``: the recompute backward of the model's attention
 (`repro_torch.models.layers.FlashAttention`) needs the row log-sum-exp.
 """
@@ -56,12 +60,37 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v on different devices")
 
 
+def flash_work(q, k, causal: bool) -> tuple[float, float]:
+    """(FLOPs, bytes) of one forward: the two products, 4 b h d per (q, k)
+    pair the mask keeps (sq skv, or about half of it where causal); q, k,
+    v read once, o and the f32 lse written once. The bound the kernel rows
+    of ``PERF.md`` use."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if not causal:
+        pairs = sq * skv
+    elif sq <= skv:                  # top-left: row i keeps i + 1 keys
+        pairs = sq * (sq + 1) / 2
+    else:
+        pairs = skv * (skv + 1) / 2 + (sq - skv) * skv
+    flops = 4.0 * b * h * d * pairs
+    nbytes = (q.element_size() * (2 * b * sq * h * d + 2 * b * skv * hkv * d)
+              + 4 * b * h * sq)
+    return flops, nbytes
+
+
 def flash_attention(q, k, v, causal: bool = True):
     """q: (b, sq, h, d); k, v: (b, skv, kv, d) with kv dividing h (kv == h
     is pre-expanded kv). Causal masking is top-left (qpos >= kpos)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal)
+    if q.device.type == "meta":
+        route(q.dtype, q.shape[3])
+        build.record_work("flash_attention", *flash_work(q, k, causal))
+        return (torch.empty_like(q), torch.empty(
+            (q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
+            device=q.device))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, sq, h, d = q.shape

@@ -3,7 +3,9 @@ version (`ref.adamw_ref`) for tensors on the CPU.
 
 The update is in place: p, m and v are overwritten, which is what lets the
 shadow keep one copy of its state on the card (the JAX package donates the
-buffers to a jit instead).
+buffers to a jit instead). On meta tensors (the dry run) nothing changes
+in place; the bytes the kernel would move are recorded into the step
+analysis listening, if any.
 """
 from __future__ import annotations
 
@@ -43,6 +45,11 @@ def fused_adamw_(p, g, m, v, s: AdamWScalars, scale: float = 1.0):
         p.copy_(pn)
         m.copy_(mn)
         v.copy_(vn)
+        return p, m, v
+    if p.device.type == "meta":
+        # p read and written, g read, m and v (f32) read and written
+        build.record_work("fused_adamw", 0.0,
+                          p.numel() * (2 * p.element_size() + 4 + 16))
         return p, m, v
     if p.device.type != "cuda":
         raise ValueError(f"fused_adamw: unsupported device {p.device}")

@@ -13,12 +13,22 @@
 ``--arch`` takes any of the 15 architectures of ``repro_torch.configs``
 (every family: dense, moe, ssm, hybrid, audio, vlm). Prints a JSON report
 (the JAX CLI's keys, the same for every family) and the one-screen metrics
-digest. The flags are the JAX CLI's (``--channel {inprocess,packetized}``
-and ``--topology`` included), except: ``--mesh`` is gone (one device),
-``--device {cuda,cpu}`` is new (default ``cuda``; it raises without a GPU),
-and so are ``--max-lag-steps`` (the async shadow's lag bound) and
+digest. The flags are the JAX CLI's (``--channel {inprocess,packetized}``,
+``--topology`` and ``--mesh {smoke,single,multi}`` included), except:
+``--device {cuda,cpu}`` is new (default ``cuda``; it raises without a
+GPU), and so are ``--max-lag-steps`` (the async shadow's lag bound) and
 ``--layers`` (the architecture cut to that depth at its full width).
 ``--optimizer`` is ``adamw``, ``adam`` or ``sgd``; any other name raises.
+
+``--mesh smoke`` (the default) is the one-rank run. ``single`` and
+``multi`` train over the production mesh (`launch.mesh
+.make_production_mesh`: 256 or 512 ranks, one process per rank, as
+``torchrun`` starts them; each process joins the group ``torchrun``
+describes) with ``ShardingRules(mesh, fsdp=cfg.fsdp)``, the data-parallel
+path of ``train(rules=)``: global rank 0 hosts the checkpointer, which
+over ranks is Checkmate or none, and prints the report; the other ranks
+print nothing. In a world of another size (one process) they raise the
+mesh's ``ValueError``.
 
 `run` does the work and returns the report with the run's objects;
 `main` prints them.
@@ -65,6 +75,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="comma-separated steps to inject failures at")
     ap.add_argument("--compress", action="store_true",
                     help="int8 gradient compression with error feedback")
+    ap.add_argument("--mesh", default="smoke",
+                    choices=["smoke", "single", "multi"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None,
@@ -78,7 +90,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 @dataclass
 class Run:
     """One CLI run: the printed report and what produced it."""
-    report: dict
+    report: dict                  # None on a rank other than global rank 0
     state: object                 # the trainer's final TrainState
     stats: object                 # train.loop.LoopStats
     checkpointer: object
@@ -125,9 +137,13 @@ def run(argv=None) -> Run:
     """Parse ``argv``, train with the chosen checkpointer, build the
     report. The Checkmate shadow is shut down (its state stays readable)."""
     args = parse_args(argv)
+    import torch.distributed as dist
+
     from repro_torch import configs, obs
     from repro_torch.core.recovery import FailurePlan
     from repro_torch.device import resolve
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.launch.mesh import join_world, make_production_mesh
     from repro_torch.obs.publish import collect_run
     from repro_torch.optim.functional import OptimizerConfig
     from repro_torch.optim.schedules import cosine_schedule
@@ -140,12 +156,22 @@ def run(argv=None) -> Run:
         cfg = cfg.reduced()
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    rules = None
+    if args.mesh != "smoke":
+        join_world(device)
+        rules = ShardingRules(make_production_mesh(
+            multi_pod=args.mesh == "multi", device=device), fsdp=cfg.fsdp)
+    host = rules is None or dist.get_rank() == 0
     opt = OptimizerConfig(name=args.optimizer, lr=args.lr)
     lr_fn = cosine_schedule(args.lr, warmup=5, total=args.steps)
+    state0 = make_train_state(cfg, args.seed, device) if host else None
+    ck = build_checkpointer(args, state0, opt, device) if host else None
     # held in a list that train() empties: at a recovery train() drops the
-    # lost state, and no reference here may keep it alive on the card
-    init = [make_train_state(cfg, args.seed, device)]
-    ck = build_checkpointer(args, init[0], opt, device)
+    # lost state, and no reference here may keep it alive on the card.
+    # Over ranks each rank starts from its slices of the same initial
+    # state (train() cuts them), and rank 0's shadow from the whole of it.
+    init = [state0 if rules is None else None]
+    del state0
     shadow = getattr(ck, "shadow", None)
 
     plan = FailurePlan(tuple(int(x) for x in args.fail_at.split(",") if x))
@@ -161,8 +187,11 @@ def run(argv=None) -> Run:
                              seq=args.seq, opt=opt, lr_fn=lr_fn,
                              checkpointer=ck, failure_plan=plan,
                              seed=args.seed, state=init.pop(),
-                             device=device)
+                             device=device, rules=rules)
         wall = time.time() - t0
+        if not host:
+            return Run(report=None, state=state, stats=stats,
+                       checkpointer=None, snapshot=None)
         reg = ob.metrics if ob is not None else obs.MetricsRegistry()
         snap = collect_run(reg, checkpointer=ck)
         if args.trace_out:
@@ -203,6 +232,8 @@ def main(argv=None) -> dict:
     JSON report and the digest, and return the report."""
     from repro_torch.obs.publish import render_digest
     r = run(argv)
+    if r.report is None:             # a rank other than global rank 0
+        return None
     print(json.dumps(r.report, indent=2))
     print(render_digest(r.snapshot, ck=r.checkpointer))
     return r.report

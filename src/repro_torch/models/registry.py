@@ -4,9 +4,19 @@ counts, init and loss of all seven families, and the serving entry points
 
 Prefill and decode run under ``torch.inference_mode``. ``vit`` has no
 serving path, as in the JAX package: asking it for one raises
-``AttributeError``, as the reference's missing functions do. The
-``ShapeDtypeStruct`` stand-ins (``abstract_cache``, ``input_specs``) are
-the JAX package's dry run's and have no counterpart here.
+``AttributeError``, as the reference's missing functions do.
+
+``abstract_params``, ``abstract_cache`` and ``input_specs`` are the
+stand-ins the dry run (`repro_torch.launch.dryrun`) traces a step on, the
+port of the reference's ``ShapeDtypeStruct`` ones: tensors on the
+``meta`` device (a shape and a dtype, no data) at the shape this rank
+holds under ``rules`` (``rules.sharding(...).local_shape``: dims mapped to
+dp axes cut, ``model``-mapped dims whole, as the port's layers compute
+them). Two differences from the reference's: integer inputs are int64,
+the port's index type (the reference's are int32), and a cache's
+``length`` is the host int the port's decode reads, set to the last
+position so that one decode step fits (the reference's is an int32
+scalar).
 """
 from __future__ import annotations
 
@@ -57,6 +67,25 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, rules=None):
     return family_module(cfg).loss_fn(params, cfg, batch)
 
 
+def abstract_params(cfg: ModelConfig, rules) -> dict:
+    """Every param leaf as a meta tensor of its dtype at this rank's local
+    shape under ``rules``."""
+    return _abstract(param_specs(cfg), rules)
+
+
+def _abstract(specs: dict, rules) -> dict:
+    # sorted leaf order, as `init_params` draws them
+    return {name: _meta(rules.sharding(*specs[name].logical,
+                                       dims=specs[name].shape),
+                        specs[name].shape, TORCH_DTYPES[specs[name].dtype])
+            for name in sorted(specs)}
+
+
+def _meta(sharding, shape, dtype) -> torch.Tensor:
+    return torch.empty(sharding.local_shape(shape), dtype=dtype,
+                       device="meta")
+
+
 def _serving(cfg: ModelConfig, name: str):
     fn = getattr(family_module(cfg), name, None)
     if fn is None:
@@ -78,6 +107,65 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
              for name, spec in cache_specs(cfg, batch, max_seq).items()}
     cache["length"] = 0
     return cache
+
+
+def abstract_cache(cfg: ModelConfig, rules, batch: int,
+                   max_seq: int) -> dict:
+    """The cache of ``batch`` rows and ``max_seq`` positions as meta
+    tensors at this rank's local shapes; ``length`` is ``max_seq - 1``."""
+    cache = _abstract(cache_specs(cfg, batch, max_seq), rules)
+    cache["length"] = max_seq - 1
+    return cache
+
+
+def _tokens(rules, shape) -> torch.Tensor:
+    return _meta(rules.sharding("batch", *([None] * (len(shape) - 1)),
+                                dims=shape), shape, torch.int64)
+
+
+def _embeds(rules, shape, dtype) -> torch.Tensor:
+    return _meta(rules.sharding("batch", None, None, dims=shape), shape,
+                 dtype)
+
+
+def input_specs(cfg: ModelConfig, shape, rules) -> dict:
+    """Model inputs of one (arch x shape) cell as meta tensors, batch rows
+    cut over the dp ranks: train -> the step's batch {tokens, labels, ...};
+    prefill -> {tokens, ...}; decode -> {token} (the cache comes from
+    `abstract_cache`). Audio adds ``frames``, vlm ``patch_embeds`` before
+    ``s - num_patches`` text tokens, vit patch embeddings and one label a
+    row, in the compute dtype, as the reference's."""
+    b, s = shape.global_batch, shape.seq_len
+    cd = TORCH_DTYPES[cfg.compute_dtype]
+    if shape.kind == "train":
+        if cfg.family == "audio":
+            return {"frames": _embeds(rules, (b, cfg.encoder_seq,
+                                              cfg.d_model), cd),
+                    "tokens": _tokens(rules, (b, s)),
+                    "labels": _tokens(rules, (b, s))}
+        if cfg.family == "vlm":
+            s_text = s - cfg.num_patches
+            return {"patch_embeds": _embeds(rules, (b, cfg.num_patches,
+                                                    cfg.d_model), cd),
+                    "tokens": _tokens(rules, (b, s_text)),
+                    "labels": _tokens(rules, (b, s_text))}
+        if cfg.family == "vit":
+            return {"patch_embeds": _embeds(rules, (b, cfg.num_patches,
+                                                    cfg.d_model), cd),
+                    "labels": _tokens(rules, (b, 1))}
+        return {"tokens": _tokens(rules, (b, s)),
+                "labels": _tokens(rules, (b, s))}
+    if shape.kind == "prefill":
+        out = {"tokens": _tokens(rules, (b, s))}
+        if cfg.family == "audio":
+            out["frames"] = _embeds(rules, (b, cfg.encoder_seq, cfg.d_model),
+                                    cd)
+        if cfg.family == "vlm":
+            out["tokens"] = _tokens(rules, (b, s - cfg.num_patches))
+            out["patch_embeds"] = _embeds(
+                rules, (b, cfg.num_patches, cfg.d_model), cd)
+        return out
+    return {"token": _tokens(rules, (b, 1))}
 
 
 @torch.inference_mode()

@@ -59,6 +59,21 @@ def make_train_state(cfg: ModelConfig, seed: int = 0, device=None,
     return TrainState(params=p, mu=m, nu=v, step=0)
 
 
+def abstract_train_state(cfg: ModelConfig, rules) -> TrainState:
+    """The trainer state as meta tensors at this rank's local shapes (the
+    dry run's stand-in, the port of the reference's): params as
+    `registry.abstract_params`, mu and nu f32 at their ZeRO-1 (or FSDP)
+    slices of `state_sharding`, step 0."""
+    sh = state_sharding(cfg, rules)
+
+    def moment(k):
+        return torch.empty(sh.state[k].local_shape(sh.shapes[k]),
+                           dtype=torch.float32, device="meta")
+    params = registry.abstract_params(cfg, rules)
+    return TrainState(params=params, mu={k: moment(k) for k in params},
+                      nu={k: moment(k) for k in params}, step=0)
+
+
 def _to_front(t: torch.Tensor, d: int) -> torch.Tensor:
     """``t`` with dim ``d`` moved to the front, contiguous."""
     return t.movedim(d, 0).contiguous()

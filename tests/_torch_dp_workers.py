@@ -356,3 +356,33 @@ def two_ranks(rank):
             assert torch.equal(getattr(back, tree)[k], t), (tree, k)
     if shadow is not None:
         shadow.shutdown()
+
+
+def serve_rows(rank, out_dir, args):
+    """The serving CLI's generation over a (4, 1) mesh: this rank's rows,
+    the tokens gathered over the dp ranks, at f32."""
+    from argparse import Namespace
+
+    from repro_torch.launch.serve import generate
+    mesh = Mesh.over_ranks((4, 1), ("data", "model"), device="cpu")
+    cfg = TC.get("tinyllama-1.1b").reduced(compute_dtype="float32")
+    out, _, _ = generate(cfg, Namespace(**args), torch.device("cpu"),
+                         ShardingRules(mesh))
+    np.save(os.path.join(out_dir, f"serve{rank}.npy"), out)
+
+
+def train_cli(rank, out_dir, argv):
+    """The training CLI's ``--mesh single`` path over four gloo ranks: the
+    production mesh stood in for by a (4, 1) one over the same group."""
+    import json
+
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import train as launch_train
+    launch_mesh.make_production_mesh = lambda multi_pod=False, device=None: \
+        Mesh.over_ranks((4, 1), ("data", "model"), device=device)
+    r = launch_train.run(argv + ["--mesh", "single"])
+    if rank == 0:
+        with open(os.path.join(out_dir, "report.json"), "w") as f:
+            json.dump(r.report, f)
+    else:
+        assert r.report is None and r.checkpointer is None
