@@ -13,8 +13,11 @@ Phases, in order; any failed check raises and the script exits nonzero:
              launch (derived from their cells: whisper's 448 x 1500
              cross-attention, its encoder and decoder, the non-causal ViT,
              GQA 7:1 and 48:1, zamba2's shared block, llava), at dbrx's
-             and gpt2-1.5b's shapes, and at sq > skv and at f32 sq != skv),
-             on test shapes and again on every
+             and gpt2-1.5b's shapes, and at sq > skv and at f32 sq != skv,
+             and with a q_offset in bf16 and f32: llama3.2-3b's
+             sequence-sharded rows (256 of 4096 at 3840, 24:8, 128), the
+             tensor-parallel CPU test's reduced shape and rows that end
+             before the last key), on test shapes and again on every
              leaf and bucket of the main path, and time kernel, plain
              version, bound and one library call (the library call is a
              yardstick only; the port never makes it).
@@ -48,7 +51,10 @@ Phases, in order; any failed check raises and the script exits nonzero:
              kernel 2 x layers x microbatches times a step, AdamW and the
              pack launched; both step times beside the card's name and
              power limit. One card runs one rank: the n > 1 schedules
-             are held on gloo ranks by the CPU tests.
+             are held on gloo ranks by the CPU tests. Before the runs,
+             the tensor-parallel Functions on CUDA tensors over that
+             mesh's model group of one rank: each the identity, forward
+             and backward (train(rules=) then runs the plain layers).
 4c. dryrun — the port's dry run (``python -m repro_torch.launch.dryrun
              --arch tinyllama-1.1b``, and again with ``--multi-pod``) in
              two subprocesses that see no card (a fake world of 256 or
@@ -65,7 +71,17 @@ Phases, in order; any failed check raises and the script exits nonzero:
              8 x 2048, 4 microbatches, bf16) on a one-rank mesh beside one
              real step after a warm-up one: the predicted arguments +
              temporaries within 25% of the step's peak allocation, and
-             the roofline step no longer than the measured one.
+             the roofline step no longer than the measured one. The train
+             cells trace the tensor-parallel step (``"model": "tp"``),
+             the serving cells the replicated one. Then the
+             tensor-parallel yardstick: ``analyze_step`` for rank 0 of a
+             (1, 4) ("data", "model") mesh in a fake world of 4 ranks
+             (``cuda`` on the fake backend) at the same cut beside that
+             rank's local step on the card: every local leaf the shape
+             of its stand-in, the predicted peak within 25% of the
+             card's, the roofline's compute and memory terms no longer
+             than the measured step (the fake collectives move nothing,
+             so values are not checked).
 5. checkpointers — the training CLI (``repro_torch.launch.train.run``)
              at full width and depth, ``--freq 1``, 5 steps, once per
              checkpointer: none; checkmate (2 async nodes, lag bound 2);
@@ -205,7 +221,8 @@ Phases, in order; any failed check raises and the script exits nonzero:
 Output: a ``main_path`` JSON line, a ``ranks`` JSON line, a ``dryrun``
 JSON line, ``flash_d128``, ``flash_f32_d128``,
 ``flash_bf16_d80``, ``flash_prefill`` (with phase 9's dense prefill
-launches) and ``pack_host`` timing lines, a ``kernels`` JSON line,
+launches), ``flash_q_offset`` (llama3.2-3b's last sequence-sharded rows,
+beside SDPA with the bottom-right mask) and ``pack_host`` timing lines, a ``kernels`` JSON line,
 a ``checkpointers`` JSON line, a ``durability`` JSON line, a ``harness``
 JSON line, a ``families`` JSON line, a ``serving`` JSON line, a
 ``benchmarks`` JSON line (each twin's CSV rows, seconds, launches and
@@ -416,6 +433,17 @@ FLASH_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (1e-2, 1e-4)}
 # 33: rows copied 4 bytes at a time)
 FLASH_BF16_DIMS = (8, 16, 24, 48, 72, 80, 96, 112, 128, 20, 100, 160, 256, 7)
 FLASH_F32_DIMS = (8, 16, 20, 32, 64, 80, 96, 128, 160, 256, 3, 33)
+# Flash with a q_offset, the sequence-sharded attention's rows (causal row
+# i keeps the keys up to q_offset + i): (b, sq, skv, h, kv, d, q_offset),
+# each in bf16 and f32. llama3.2-3b's rows on the single pod (24 heads do
+# not divide 16 model ranks: each rank takes 256 of 4096 rows; the last
+# rank's at 3840), the tensor-parallel CPU test's reduced shape (3 heads
+# over 2 ranks: rank 1's 8 of 16 rows), and rows that end before the
+# last key. The first is timed (FLASH_OFFSET_ROW).
+FLASH_OFFSET_CASES = ((1, 256, 4096, 24, 8, 128, 3840),
+                      (4, 8, 16, 3, 1, 16, 8),
+                      (1, 100, 300, 8, 2, 64, 37))
+FLASH_OFFSET_ROW = FLASH_OFFSET_CASES[0]
 
 
 # Flash shapes beside phase 8's own (which family_flash_cases() derives
@@ -472,19 +500,23 @@ def check_flash(dev) -> dict:
         return (torch.randn(shape, generator=gen, device=dev) * s).to(dt)
 
     cases, n_family = flash_cases()
+    cases += [(b, s, skv, h, kv, d, dt, True, off)
+              for b, s, skv, h, kv, d, off in FLASH_OFFSET_CASES
+              for dt in (torch.bfloat16, torch.float32)]
     worst, ratios = {}, {}
     for case in cases:
-        b, s, skv, h, kv, d, dt, causal = case
+        b, s, skv, h, kv, d, dt, causal = case[:8]
+        off = case[8] if len(case) > 8 else 0
         rtol, atol = FLASH_TOL[dt]
         q, k, v = rnd((b, s, h, d), dt, 0.3), \
             rnd((b, skv, kv, d), dt, 0.3), rnd((b, skv, kv, d), dt)
         name = f"flash_attention_{route(dt, d)}"
         before = ops.launch_counts()
-        o, lse = ops.flash_attention(q, k, v, causal)
+        o, lse = ops.flash_attention(q, k, v, causal, off)
         ran = {n: c - before[n] for n, c in ops.launch_counts().items()}
         check(ran[name] == 1 and sum(ran.values()) == 1,
               f"flash {case}: launched {ran}, not {name} once")
-        orf, lref = ref.flash_attention_ref(q, k, v, causal)
+        orf, lref = ref.flash_attention_ref(q, k, v, causal, off)
         torch.cuda.synchronize()
         diff = (o.float() - orf.float()).abs()
         ratio = (diff / (rtol * orf.float().abs() + atol)).max().item()
@@ -504,7 +536,8 @@ def check_flash(dev) -> dict:
                   f"mean |o| {size}", flush=True)
     print(f"kernels: flash within tolerance on {len(cases)} cases, "
           f"{n_family} of them the families' shapes (sq != skv among "
-          f"them) (o: 2e-5 f32, 1e-2*|ref| + 1e-4 bf16; lse 1e-4); "
+          f"them), {2 * len(FLASH_OFFSET_CASES)} with a q_offset "
+          f"(o: 2e-5 f32, 1e-2*|ref| + 1e-4 bf16; lse 1e-4); "
           f"worst share of the limit {ratios}", flush=True)
     return worst
 
@@ -664,6 +697,10 @@ def time_kernels(dev, cfg, errs: dict) -> tuple[list[dict], dict, dict]:
                                  ("flash_f32_d128", FLASH_F32_D128),
                                  ("flash_bf16_d80", FLASH_BF16_D80),
                                  ("flash_prefill", FLASH_PREFILL))}
+    b, sq, skv, h, kv, d, off = FLASH_OFFSET_ROW
+    extra["flash_q_offset"] = flash_row(dev, gen, (b, sq, h, kv, d),
+                                        torch.bfloat16, errs, skv=skv,
+                                        q_offset=off)
     for r in rows + list(extra.values()):
         r["route"] = "cuda"
         by = ", ".join(filter(None, (r["bound_by"], r.get("bound_unit"))))
@@ -680,25 +717,36 @@ FLASH_SOURCES = {"flash_attention_wgmma": "flash_attention_wgmma.cu",
                  "flash_attention_mma": "flash_attention.cu"}
 
 
-def flash_row(dev, gen, shape, dt, errs) -> dict:
+def flash_row(dev, gen, shape, dt, errs, skv=None, q_offset=0) -> dict:
     """The flash kernel ``route`` picks, timed at (b, s, h, kv, d), causal,
     beside its plain version and SDPA on kv expanded to h heads. Its bound
     is that of the unit it runs on: bf16 products on the tensor cores
     (wgmma), or at the TF32 rate three times for f32 and one and a half
     times for bf16 (mma.sync, 3xTF32; bf16 splits only P), with the f32
-    units' bound beside it."""
+    units' bound beside it. With ``skv`` and ``q_offset`` (skv - s: the
+    last rows of a sequence-sharded attention), s query rows at that
+    offset against skv keys, and SDPA with the equivalent bottom-right
+    causal mask."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import route
+    from repro_torch.kernels.flash_attention import causal_pairs, route
     b, sq, h, kv, d = shape
+    skv = sq if skv is None else skv
     name = f"flash_attention_{route(dt, d)}"
     q = (torch.randn((b, sq, h, d), generator=gen, device=dev) * 0.3).to(dt)
-    k = (torch.randn((b, sq, kv, d), generator=gen, device=dev) * 0.3).to(dt)
-    v = torch.randn((b, sq, kv, d), generator=gen, device=dev).to(dt)
+    k = (torch.randn((b, skv, kv, d), generator=gen, device=dev) * 0.3).to(dt)
+    v = torch.randn((b, skv, kv, d), generator=gen, device=dev).to(dt)
     qt = q.transpose(1, 2)
     kt = ref.expand_kv(k, h).transpose(1, 2)
     vt = ref.expand_kv(v, h).transpose(1, 2)
-    pairs = sq * (sq + 1) / 2                     # causal (q, k) pairs
+    if q_offset:
+        from torch.nn.attention.bias import causal_lower_right
+        check(q_offset == skv - sq, f"flash_row: offset {q_offset} is not "
+                                    f"the bottom-right mask's {skv - sq}")
+        sdpa = dict(attn_mask=causal_lower_right(sq, skv))
+    else:
+        sdpa = dict(is_causal=True)
+    pairs = causal_pairs(sq, skv, q_offset)     # causal (q, k) pairs
     flops = 4.0 * b * h * d * pairs
     item = q.element_size()
     nbytes = item * (q.numel() * 2 + k.numel() + v.numel()) + 4.0 * b * h * sq
@@ -718,12 +766,15 @@ def flash_row(dev, gen, shape, dt, errs) -> dict:
         name=name, source=f"src/repro_torch/kernels/csrc/{FLASH_SOURCES[name]}",
         replaces="src/repro/kernels/flash_attention.py:80",
         max_abs_err=errs[f"{name}:{str(dt).removeprefix('torch.')}"],
-        ms=time_ms(lambda: ops.flash_attention(q, k, v, True), 10),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, True), 3, 1),
+        ms=time_ms(lambda: ops.flash_attention(q, k, v, True, q_offset), 10),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, True,
+                                                         q_offset), 3, 1),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 10),
+            qt, kt, vt, **sdpa), 10),
         shape=list(shape), dtype=str(dt).removeprefix("torch."), **extra)
+    if q_offset:
+        row.update(skv=skv, q_offset=q_offset)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return row
@@ -955,6 +1006,29 @@ def card_name_power() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+def identity_at_model_one(mesh, cfg):
+    """The tensor-parallel Functions on CUDA tensors over the model group
+    of a one-rank mesh: each hands back its input and passes its
+    gradient as it is, and the layers' context is None there (so
+    train(rules=) runs the plain layers, bitwise train())."""
+    from repro_torch.dist import tensor_parallel as TP
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.models import registry
+    tp = TP.ModelParallel(mesh, ("wq",))
+    x = torch.randn(4, 8, device="cuda", requires_grad=True)
+    for name, fn in (("copy_to_model", TP.copy_to_model),
+                     ("reduce_from_model", TP.reduce_from_model),
+                     ("gather_from_model",
+                      lambda t, tp: TP.gather_from_model(t, -1, tp)),
+                     ("gather_rows", lambda t, tp: TP.gather_rows(t, 1, tp))):
+        y = fn(x, tp)
+        (g,) = torch.autograd.grad(y, x, torch.ones_like(x))
+        check(y is x and torch.equal(g, torch.ones_like(x)),
+              f"ranks: {name} is not the identity at model extent 1")
+    check(TP.context(ShardingRules(mesh), registry.param_specs(cfg))
+          is None, "ranks: a context at model extent 1")
+
+
 def phase_ranks(cfg) -> dict:
     import shutil
     import tempfile
@@ -975,6 +1049,7 @@ def phase_ranks(cfg) -> dict:
         check(mesh.device_mesh is not None and mesh.device_type == "cuda"
               and mesh.coords == {"data": 0, "model": 0},
               f"ranks: mesh {mesh} at {mesh.coords}")
+        identity_at_model_one(mesh, cut)
         for label, kw in (("rules", {"rules": ShardingRules(mesh)}),
                           ("plain", {})):
             _free()
@@ -1136,6 +1211,122 @@ def dryrun_yardstick(cfg) -> dict:
             "roofline_share": rf.step_time_s / step_s}
 
 
+# The tensor-parallel yardstick: rank 0 of a (1, 4) ("data", "model") mesh
+# in a fake world of 4 ranks, at phase 4b's cut (tinyllama's 32 heads and 4
+# kv heads divide 4, so every leaf the spec maps to model is cut on whole
+# heads). Its collectives move nothing on the card, so its values are not
+# checked: only the local shapes, the peak and the time.
+TP_YARD_MESH = (1, 4)
+# timed steps after two warm-up ones (the step is host-paced: a quarter of
+# the one-rank step's device work, the same number of launches); the
+# median is reported
+TP_YARD_STEPS = 3
+
+
+def tp_yardstick(cfg) -> dict:
+    """`analyze_step` for rank 0 of TP_YARD_MESH beside that rank's local
+    step on the card (the fake backend takes CUDA tensors too; the median
+    of TP_YARD_STEPS steps, the peak over them): every
+    local leaf the shape of its stand-in, the predicted arguments +
+    temporaries within DRYRUN_MEMORY_RTOL of the step's peak allocation,
+    and the roofline's compute and memory terms no longer than the
+    measured step (its collective term is reported beside them: the fake
+    collectives cost the card nothing)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import SyntheticStream, device_batch
+    from repro_torch.dist.sharding import Mesh, ShardingRules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.launch.roofline import Roofline, model_flops_for
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models import registry
+    from repro_torch.optim.functional import OptimizerConfig
+    from repro_torch.train.step import (abstract_train_state,
+                                        build_train_step, make_train_state)
+    cut = dataclasses.replace(cfg, num_layers=RANKS_LAYERS)
+    shape = ShapeConfig("phase4b", MAIN_RUN["seq"], MAIN_RUN["batch"],
+                        "train")
+    opt = OptimizerConfig()
+    names = ("data", "model")
+    with fake_world(math.prod(TP_YARD_MESH)):
+        rules = ShardingRules(Mesh.over_ranks(TP_YARD_MESH, names,
+                                              device="cpu"))
+        stand_in = abstract_train_state(cut, rules)
+        a = analyze_step(build_train_step(cut, opt, lambda s: 1e-3, rules),
+                         stand_in, registry.input_specs(cut, shape, rules))
+        del a["result"]
+        rf = Roofline(
+            arch=cut.name, shape=shape.name, mesh="1x4 rank 0",
+            chips=math.prod(TP_YARD_MESH),
+            flops_per_device=a["flops_per_device"],
+            bytes_per_device=a["bytes_per_device"],
+            collective_bytes_per_device=a["collective_bytes_per_device"],
+            model_flops=model_flops_for(cut, shape),
+            per_collective=a["per_collective"])
+        predicted = a["memory"]["argument_bytes"] + a["memory"]["temp_bytes"]
+
+        card = ShardingRules(Mesh.over_ranks(TP_YARD_MESH, names))
+        _free()
+        base = torch.cuda.memory_allocated()
+        state = make_train_state(cut, 0, "cuda", card)
+        for tree in ("params", "mu", "nu"):
+            for k, t in getattr(state, tree).items():
+                check(t.shape == getattr(stand_in, tree)[k].shape,
+                      f"dryrun: tp {tree}[{k}] {tuple(t.shape)} on the card, "
+                      f"{tuple(getattr(stand_in, tree)[k].shape)} traced")
+        batch = device_batch(SyntheticStream(cut, MAIN_RUN["batch"],
+                                             MAIN_RUN["seq"]).batch_at(0),
+                             "cuda", card, cut.microbatches)
+        step = build_train_step(cut, opt, lambda s: 1e-3, card)
+        for _ in range(2):                # warm-up: the host-paced step
+            out = step(state, batch)      # settles on its second call
+            del out
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(TP_YARD_STEPS):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del out
+        step_s = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = ops.launch_counts()
+        del state, batch, step
+        _free()
+    err = predicted / peak - 1.0
+    flash = 2 * cut.num_layers * cut.microbatches
+    local_s = max(rf.compute_s, rf.memory_s)
+    check(launches["flash_attention_wgmma"] == flash
+          and a["kernels"]["flash_attention"]["calls"] == flash
+          and launches["fused_adamw"] == a["kernels"]["fused_adamw"]["calls"],
+          f"dryrun: tp step launched {launches}, the analysis recorded "
+          f"{a['kernels']} (flash {flash})")
+    check(abs(err) <= DRYRUN_MEMORY_RTOL,
+          f"dryrun: tp predicted {predicted} bytes vs the card's peak "
+          f"{peak} ({err:+.1%}; tolerance {DRYRUN_MEMORY_RTOL:.0%})")
+    check(local_s <= step_s,
+          f"dryrun: tp roofline {local_s * 1e3:.2f} ms (compute and "
+          f"memory) beats the measured {step_s * 1e3:.2f} ms")
+    return {"model": cut.name, "layers": cut.num_layers,
+            "mesh": list(TP_YARD_MESH), "batch": MAIN_RUN["batch"],
+            "seq": MAIN_RUN["seq"], "microbatches": cut.microbatches,
+            "predicted_bytes": predicted, "memory": a["memory"],
+            "peak_bytes": peak, "memory_err": err,
+            "flops": a["flops_per_device"], "bytes": a["bytes_per_device"],
+            "collective_bytes": a["collective_bytes_per_device"],
+            "per_collective": a["per_collective"],
+            "roofline": {k: v for k, v in rf.row().items()
+                         if k in ("compute_s", "memory_s", "collective_s",
+                                  "bound", "step_time_s")},
+            "step_ms": step_s * 1e3,
+            "step_ms_each": [t * 1e3 for t in times], "launches": launches,
+            "local_roofline_share": local_s / step_s}
+
+
 def phase_dryrun(cfg) -> dict:
     """The port's dry run of DRYRUN_ARCH on the two production meshes, a
     subprocess each, while the yardstick runs on the card; every traced
@@ -1150,6 +1341,7 @@ def phase_dryrun(cfg) -> dict:
             out = os.path.join(tmp, f"{mesh}.json")
             procs[out] = _start_dryrun(out, flags)
         yard = dryrun_yardstick(cfg)
+        tp = tp_yardstick(cfg)
         for out, proc in procs.items():
             log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
             check(proc.returncode == 0,
@@ -1172,7 +1364,11 @@ def phase_dryrun(cfg) -> dict:
         if r["shape"] == "train_4k":
             check(r["collective_s"] > 0 and r["per_collective"]["send"] > 0,
                   f"dryrun: {key}: no collective bytes")
-        cells[key] = {"compute_s": r["compute_s"], "memory_s": r["memory_s"],
+        check(r["model"] == ("tp" if r["shape"] == "train_4k"
+                             else "replicated"),
+              f"dryrun: {key}: model layout {r['model']}")
+        cells[key] = {"model": r["model"],
+                      "compute_s": r["compute_s"], "memory_s": r["memory_s"],
                       "collective_s": r["collective_s"], "bound": r["bound"],
                       "useful_flops_ratio": r["useful_flops_ratio"],
                       "hbm_gb_per_rank": r["bytes_per_device_hbm"] / 1e9,
@@ -1199,9 +1395,20 @@ def phase_dryrun(cfg) -> dict:
           f"({yard['roofline']['bound']}-bound), measured "
           f"{yard['step_ms']:.2f} ms, share {yard['roofline_share']:.3f}; "
           f"{card_name_power()}", flush=True)
+    print(f"dryrun: tensor-parallel yardstick, rank 0 of {tp['mesh']}, "
+          f"{tp['layers']} layers, {tp['batch']} x {tp['seq']}: predicted "
+          f"{tp['predicted_bytes'] / 1e9:.3f} GB, card peak "
+          f"{tp['peak_bytes'] / 1e9:.3f} GB ({tp['memory_err']:+.1%}); "
+          f"roofline compute {tp['roofline']['compute_s'] * 1e3:.2f} ms, "
+          f"memory {tp['roofline']['memory_s'] * 1e3:.2f} ms, collective "
+          f"{tp['roofline']['collective_s'] * 1e3:.2f} ms (not run: the "
+          f"fake collectives move nothing); measured local step "
+          f"{tp['step_ms']:.2f} ms against the one-rank "
+          f"{yard['step_ms']:.2f} ms ({tp['step_ms'] / yard['step_ms']:.3f}"
+          f"); {card_name_power()}", flush=True)
     return {"arch": DRYRUN_ARCH, "cells": cells,
             "multi_over_single_flops": half, "yardstick": yard,
-            "card": card_name_power()}
+            "tp_yardstick": tp, "card": card_name_power()}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -2340,10 +2547,10 @@ def family_run(label: str) -> dict:
     # against what phase 2 checked)
     seen, flash = collections.Counter(), ops.flash_attention
 
-    def recording(q, k, v, causal):
+    def recording(q, k, v, causal, q_offset=0):
         seen[(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
               q.dtype, causal)] += 1
-        return flash(q, k, v, causal)
+        return flash(q, k, v, causal, q_offset)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with RssPeak() as rss:
@@ -2618,10 +2825,10 @@ def serve_run(label: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     seen, flash = collections.Counter(), ops.flash_attention
 
-    def recording(q, k, v, causal):
+    def recording(q, k, v, causal, q_offset=0):
         seen[(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
               q.dtype, causal)] += 1
-        return flash(q, k, v, causal)
+        return flash(q, k, v, causal, q_offset)
     with RssPeak() as rss:
         t0 = time.perf_counter()
         params = serving_params(cfg, registry.init_params(cfg, seed=0,
@@ -2823,10 +3030,10 @@ def phase_benchmarks() -> tuple[dict, dict]:
         _free()
         seen = collections.Counter()
 
-        def recording(q, k, v, causal):
+        def recording(q, k, v, causal, q_offset=0):
             seen[(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
                   q.shape[3], q.dtype, causal)] += 1
-            return flash(q, k, v, causal)
+            return flash(q, k, v, causal, q_offset)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         ops.flash_attention = recording
@@ -3123,7 +3330,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the flash rows also name their shape and dtype, the unit of their
     # bound and, for the mma.sync kernel, the f32 units' bound beside it
-    more = ("shape", "dtype", "bound_unit", "other_bound_ms", "other_bound_by",
+    more = ("shape", "skv", "q_offset", "dtype", "bound_unit",
+            "other_bound_ms", "other_bound_by",
             "other_bound_unit")
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"ranks": ranks}))

@@ -11,7 +11,8 @@ the data stream at the checkpoint step; the stream is a pure function of
 Over more than one rank (one process per rank) the shadow lives on global
 rank 0: it consolidates, ``broadcast_checkpoint`` sends the full
 checkpoint to every rank of the mesh, and each rank keeps its slices of
-it (``state_from_checkpoint`` with ``rules``).
+it (``state_from_checkpoint`` with ``rules``: a leaf's dp cut and, for a
+tensor-parallel family, its model cut).
 """
 from __future__ import annotations
 

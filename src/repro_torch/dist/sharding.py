@@ -36,12 +36,16 @@ its slices; ``shard(x, ...)`` takes a full tensor and returns its slice.
 A dim mapped to several dp axes (``("pod", "data")``) splits row-major,
 pod first, as JAX splits it.
 
-The port has no tensor-parallel layers: the ranks of a ``model`` group
-compute every layer whole, replicated, so ``local()`` holds a dim mapped
-to ``model`` (or ``stage``) whole and cuts only dims mapped to dp axes.
-``spec()`` and ``sharding().spec`` stay the reference's; the numbers are
-the same, only the memory per rank differs (tensor-parallel layers are a
-ROADMAP item of their own).
+Tensor-parallel families (`repro_torch.models.registry.TENSOR_PARALLEL`:
+dense and vlm) hold what the reference's GSPMD holds: a dim mapped to
+``model`` is cut over the rank's model group, independently of a dim cut
+over the dp axes, so a ZeRO-1 leaf (``zero1_spec`` puts dp on a second
+dim) is cut twice. Their layers run the explicit collectives of
+`repro_torch.dist.tensor_parallel` over ``mesh.group("model")``. Every
+other family, and serving, computes each layer whole on every rank of a
+``model`` group: ``sharding(..., model=False)`` holds a ``model`` dim
+whole and cuts only the dp dim. ``spec()`` and ``sharding().spec`` are the
+reference's either way.
 """
 from __future__ import annotations
 
@@ -176,16 +180,19 @@ class Mesh:
         return self.device_mesh.get_group(axis)
 
     def group_over(self, axes):
-        """The process group over ``axes`` (a name, or a tuple of names
-        that is one axis or every dp axis); None on a one-rank mesh."""
+        """The process group over ``axes`` (a name, a tuple of names that
+        is one axis or every dp axis, or every axis of the mesh); None on
+        a one-rank mesh."""
         axes = _axes(axes)
         if len(axes) == 1:
             return self.group(axes[0])
-        if axes != dp_axes(self):
-            raise ValueError(f"no process group over {axes}: one axis or "
-                             f"the dp axes {dp_axes(self)}")
         if self.device_mesh is None:
             return None
+        if set(axes) == set(self.axis_names):
+            return self.mesh_group
+        if axes != dp_axes(self):
+            raise ValueError(f"no process group over {axes}: one axis, "
+                             f"the dp axes {dp_axes(self)} or all axes")
         return self._groups["dp"]
 
     @property
@@ -236,49 +243,108 @@ class NamedSharding:
 
     ``local(x)`` is the slice of a full tensor ``x`` this rank holds (a
     view of ``x``); ``gather(local)`` rebuilds the full tensor from every
-    rank's slice, collectively over the ranks that split it. Only dims
-    mapped to dp axes are cut (the module docstring says why); ``dim`` is
-    that dim (None where nothing is cut) and ``axes`` its mesh axes.
+    rank's slice, collectively over the ranks that split it. One dim may
+    be cut over the dp axes (``dim``, its mesh axes ``axes``, ``n`` ranks)
+    and, independently, one over ``model`` (``model_dim``, ``m`` ranks);
+    with ``model=False`` a ``model`` dim is held whole (the layout of a
+    family that computes each layer whole on every model rank).
+    ``dp_local`` and ``gather_dp`` are the dp half alone, on a tensor
+    already cut over ``model``.
     """
 
-    def __init__(self, mesh, spec):
+    def __init__(self, mesh, spec, model: bool = True):
         self.mesh = mesh
         self.spec = spec if isinstance(spec, P) else P(*spec)
-        self.dim, self.axes = None, ()
+        self.dim, self.axes, self.model_dim = None, (), None
         for d, part in enumerate(self.spec):
             axes = () if part is None else _axes(part)
+            if axes == ("model",):
+                if model:
+                    self.model_dim = d
+                continue
             cut = tuple(a for a in axes if a not in _NON_DP_MESH_AXES)
             if not cut:
                 continue
             if cut != axes or self.dim is not None:
-                raise ValueError(f"spec {self.spec}: one dim may be cut, "
-                                 f"over dp axes only")
+                raise ValueError(f"spec {self.spec}: one dim may be cut "
+                                 f"over dp axes and one over model")
             self.dim, self.axes = d, cut
         self.n = math.prod(mesh.shape[a] for a in self.axes)
+        self.m = 1 if self.model_dim is None else mesh.shape["model"]
+
+    def _cuts(self):
+        return [(d, k, ax) for d, k, ax in ((self.dim, self.n, self.axes),
+                                           (self.model_dim, self.m,
+                                            ("model",)))
+                if k > 1]
 
     def local_shape(self, shape) -> tuple:
         shape = list(shape)
-        if self.n > 1:
-            if shape[self.dim] % self.n:
-                raise ValueError(f"dim {self.dim} of {tuple(shape)} does "
-                                 f"not split over {self.n} ranks")
-            shape[self.dim] //= self.n
+        for d, k, _ in self._cuts():
+            if shape[d] % k:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not "
+                                 f"split over {k} ranks")
+            shape[d] //= k
         return tuple(shape)
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
+        for d, k, ax in self._cuts():
+            s = x.shape[d] // k
+            x = x.narrow(d, self.mesh.coordinate(ax) * s, s)
+        return x
+
+    def dp_local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's dp slice of ``x``, a tensor already cut over
+        ``model`` (or holding no model cut)."""
         if self.n == 1:
             return x
-        s = self.local_shape(x.shape)[self.dim]
+        s = x.shape[self.dim] // self.n
         return x.narrow(self.dim, self.mesh.coordinate(self.axes) * s, s)
 
-    def gather(self, local: torch.Tensor) -> torch.Tensor:
+    def gather_dp(self, local: torch.Tensor) -> torch.Tensor:
+        """The way back from `dp_local`, over this rank's dp group."""
         if self.n == 1:
             return local
         return torch.cat(self.mesh.all_gather(local, self.axes),
                          dim=self.dim)
 
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        cuts = self._cuts()
+        if not cuts:
+            return local
+        if len(cuts) == 1:
+            d, _, ax = cuts[0]
+            return torch.cat(self.mesh.all_gather(local, ax), dim=d)
+        # cut twice: one all-gather over every axis, each rank's slice
+        # placed by its (dp, model) coordinates
+        names = self.mesh.axis_names
+        if set(self.axes) | {"model"} != set(names):
+            raise ValueError(f"spec {self.spec}: a leaf cut twice needs a "
+                             f"mesh of only dp axes and model, not {names}")
+        parts = self.mesh.all_gather(local, names)
+        extents = [self.mesh.shape[a] for a in names]
+        rows = [[None] * self.m for _ in range(self.n)]
+        for r, t in enumerate(parts):
+            c = dict(zip(names, (int(i) for i in unravel(r, extents))))
+            i = 0
+            for a in self.axes:
+                i = i * self.mesh.shape[a] + c[a]
+            rows[i][c["model"]] = t
+        return torch.cat([torch.cat(row, dim=self.model_dim)
+                          for row in rows], dim=self.dim)
+
     def __repr__(self) -> str:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def unravel(i: int, extents) -> list:
+    """The row-major coordinates of index ``i`` on a grid of ``extents``
+    (a mesh rank's on each axis, in mesh order)."""
+    out = []
+    for e in reversed(extents):
+        out.append(i % e)
+        i //= e
+    return out[::-1]
 
 
 class ShardingRules:
@@ -329,8 +395,12 @@ class ShardingRules:
             parts.pop()                 # trailing Nones are implicit
         return P(*parts)
 
-    def sharding(self, *logical, dims=None) -> NamedSharding:
-        return NamedSharding(self.mesh, self.spec(*logical, dims=dims))
+    def sharding(self, *logical, dims=None, model: bool = True
+                 ) -> NamedSharding:
+        """The `NamedSharding` of ``spec``; ``model=False`` holds a
+        ``model`` dim whole."""
+        return NamedSharding(self.mesh, self.spec(*logical, dims=dims),
+                             model=model)
 
     def shard(self, x, *logical):
         """This rank's slice of the full tensor ``x`` under its logical

@@ -54,9 +54,9 @@ SIGNATURES = {
     "repro_adamw_f32": _ADAMW_ARGS,
     "repro_adamw_bf16": _ADAMW_ARGS,
     "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _P],
+                        _I, _F, _P],
     "repro_flash_fwd_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _F, _P],
+                              _I, _F, _P],
     "repro_bucket_pack": [PackTable, _P, _P],
 }
 

@@ -315,7 +315,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int sq, int skv, int h, int hkv,
-                     int d, int causal, float scale_log2, int cb, int vec) {
+                     int d, int causal, int q_offset, float scale_log2, int cb,
+                     int vec) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int MT = m_tiles<D>();
   constexpr int BQ = q_rows<D>();
@@ -334,7 +335,7 @@ flash_fwd_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / h, hh = bh % h;
   const int kvh = hh / (h / hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;      // longest tiles first
-  const int kv_end = causal ? min(skv, min(q0 + BQ, sq)) : skv;
+  const int kv_end = causal ? min(skv, min(q0 + BQ, sq) + q_offset) : skv;
   const int n_kv = (kv_end + BK - 1) / BK;
 
   // the first STAGES-1 groups: q with kv tile 0, then tiles 1 .. STAGES-2
@@ -386,7 +387,8 @@ flash_fwd_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_commit();
     }
     const int k0 = j * BK;
-    if (causal && k0 > rw0 + 16 * MT - 1) continue;   // wholly above our rows
+    if (causal && k0 > rw0 + 16 * MT - 1 + q_offset)
+      continue;                                // wholly above our rows
     const T* kf = sk(j % STAGES) + g * RQ + 4 * t;
     const T* vf = sv(j % STAGES) + 2 * t * RV + GW * g;
 
@@ -436,7 +438,7 @@ flash_fwd_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
 
     // element e of S tile n of m-tile mt is row 2*mt + e/2, column
     // k0 + 8n + 2t + e%2
-    if (k0 + BK > skv || (causal && k0 + BK - 1 > rw0)) {
+    if (k0 + BK > skv || (causal && k0 + BK - 1 > rw0 + q_offset)) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -444,7 +446,8 @@ flash_fwd_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = k0 + 8 * n + 2 * t + (e & 1);
-            if (col >= skv || (causal && col > rows[2 * mt + e / 2]))
+            if (col >= skv ||
+                (causal && col > rows[2 * mt + e / 2] + q_offset))
               sc[mt][n][e] = -INFINITY;
           }
     }
@@ -540,8 +543,8 @@ flash_fwd_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const T* q, const T* k, const T* v, T* o, float* lse, int b,
-           int sq, int skv, int h, int hkv, int d, int causal, float sm_scale,
-           cudaStream_t stream) {
+           int sq, int skv, int h, int hkv, int d, int causal, int q_offset,
+           float sm_scale, cudaStream_t stream) {
   constexpr int smem = smem_bytes<T, D>();
   static bool attr = false;
   if (!attr) {
@@ -560,7 +563,7 @@ int launch(const T* q, const T* k, const T* v, T* o, float* lse, int b,
   constexpr int BQ = q_rows<D>();
   const dim3 grid((unsigned)(b * h), (unsigned)((sq + BQ - 1) / BQ));
   flash_fwd_kernel_mma<T, D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, lse, sq, skv, h, hkv, d, causal,
+      q, k, v, o, lse, sq, skv, h, hkv, d, causal, q_offset,
       sm_scale * 1.4426950408889634f, cb, vec);
   return (int)cudaGetLastError();
 }
@@ -568,7 +571,7 @@ int launch(const T* q, const T* k, const T* v, T* o, float* lse, int b,
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              int b, int sq, int skv, int h, int hkv, int d, int causal,
-             float sm_scale, cudaStream_t s) {
+             int q_offset, float sm_scale, cudaStream_t s) {
   const T* qt = reinterpret_cast<const T*>(q);
   const T* kt = reinterpret_cast<const T*>(k);
   const T* vt = reinterpret_cast<const T*>(v);
@@ -576,7 +579,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
 #define REPRO_FLASH_CASE(DIM)                                               \
   if (d <= DIM)                                                             \
     return launch<T, DIM>(qt, kt, vt, ot, lse, b, sq, skv, h, hkv, d, causal, \
-                          sm_scale, s);
+                          q_offset, sm_scale, s);
   REPRO_FLASH_CASE(16)
   REPRO_FLASH_CASE(32)
   REPRO_FLASH_CASE(64)
@@ -589,18 +592,20 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // q, o: (b, sq, h, d); k, v: (b, skv, hkv, d); lse: (b, h, sq) f32. All
-// contiguous, f32 or (is_bf16) bf16, 1 <= d <= 256.
+// contiguous, f32 or (is_bf16) bf16, 1 <= d <= 256. Causal row i keeps the
+// keys up to q_offset + i (q_offset >= 0).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, float* lse, int b, int sq, int skv,
-                               int h, int hkv, int d, int causal, int is_bf16,
+                               int h, int hkv, int d, int causal,
+                               int q_offset, int is_bf16,
                                float sm_scale, void* stream) {
   if (b <= 0 || sq <= 0 || skv <= 0) return (int)cudaSuccess;
-  if (hkv <= 0 || h % hkv != 0 || d < 1 || d > 256)
+  if (hkv <= 0 || h % hkv != 0 || d < 1 || d > 256 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return dispatch<__nv_bfloat16>(q, k, v, o, lse, b, sq, skv, h, hkv, d,
-                                   causal, sm_scale, s);
+                                   causal, q_offset, sm_scale, s);
   return dispatch<float>(q, k, v, o, lse, b, sq, skv, h, hkv, d, causal,
-                         sm_scale, s);
+                         q_offset, sm_scale, s);
 }

@@ -218,7 +218,8 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
 
 // q, o: (b, sq, h, d); k, v: (b, skv, hkv, d); lse: (b, h, sq); d <= D. The
 // tensor maps describe q, k, v as (d, heads, s, b), innermost first, and
-// their boxes are D columns wide.
+// their boxes are D columns wide. Causal row i keeps the keys up to
+// q_offset + i.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
@@ -226,7 +227,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int sq, int skv, int h, int hkv, int d, int causal,
-                       float scale_log2) {
+                       int q_offset, float scale_log2) {
   constexpr int NBOX = D / kBox;
   constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
   extern __shared__ unsigned char smem_raw[];
@@ -246,7 +247,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
   const int b = bh / h, hh = bh % h;
   const int kvh = hh / (h / hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;      // longest tiles first
-  const int kv_end = causal ? min(skv, min(q0 + BQ, sq)) : skv;
+  const int kv_end = causal ? min(skv, min(q0 + BQ, sq) + q_offset) : skv;
   const int n_kv = (kv_end + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
@@ -300,7 +301,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     const int s = j % STAGES;
     const int k0 = j * BK;
     mbar_wait(full(s), (j / STAGES) & 1);
-    if (!(causal && k0 > rw0 + 63)) {          // else wholly above our rows
+    if (!(causal && k0 > rw0 + 63 + q_offset)) {   // else wholly above
       float sc[BK / 2];
       wgmma_fence();
 #pragma unroll
@@ -313,12 +314,13 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       wgmma_wait_all();
       fence_regs(sc);
 
-      if (k0 + BK > skv || (causal && k0 + BK - 1 > rw0)) {
+      if (k0 + BK > skv || (causal && k0 + BK - 1 > rw0 + q_offset)) {
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) {
           const int col = k0 + 8 * (i / 4) + cq + (i % 2);
           const int row = rows[(i / 2) % 2];
-          if (col >= skv || (causal && col > row)) sc[i] = -INFINITY;
+          if (col >= skv || (causal && col > row + q_offset))
+            sc[i] = -INFINITY;
         }
       }
       float mx[2] = {-INFINITY, -INFINITY};
@@ -444,7 +446,7 @@ bool encode(CUtensorMap* map, const void* ptr, int b, int s, int heads, int d,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int b, int sq, int skv, int h, int hkv, int d, int causal,
-           float sm_scale, cudaStream_t stream) {
+           int q_offset, float sm_scale, cudaStream_t stream) {
   constexpr int smem = 1024 + BQ * D * 2 + STAGES * 2 * BK * D * 2 +
                        8 * (1 + 2 * STAGES);
   static bool attr = false;
@@ -462,7 +464,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((unsigned)(b * h), (unsigned)((sq + BQ - 1) / BQ));
   flash_fwd_kernel_wgmma<D><<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, reinterpret_cast<__nv_bfloat16*>(o), lse, sq, skv, h, hkv,
-      d, causal, sm_scale * 1.4426950408889634f);
+      d, causal, q_offset, sm_scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -470,18 +472,20 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 // bf16 q, o: (b, sq, h, d); k, v: (b, skv, hkv, d); lse: (b, h, sq) f32.
 // All contiguous, base addresses 16-byte aligned, d % 8 == 0, 8 <= d <= 128.
+// Causal row i keeps the keys up to q_offset + i (q_offset >= 0).
 extern "C" int repro_flash_fwd_wgmma(const void* q, const void* k,
                                      const void* v, void* o, float* lse,
                                      int b, int sq, int skv, int h, int hkv,
-                                     int d, int causal, float sm_scale,
-                                     void* stream) {
+                                     int d, int causal, int q_offset,
+                                     float sm_scale, void* stream) {
   if (b <= 0 || sq <= 0 || skv <= 0) return (int)cudaSuccess;
-  if (hkv <= 0 || h % hkv != 0 || d < 8 || d > 128 || d % 8 != 0)
+  if (hkv <= 0 || h % hkv != 0 || d < 8 || d > 128 || d % 8 != 0 ||
+      q_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (d <= 64)
-    return launch<64>(q, k, v, o, lse, b, sq, skv, h, hkv, d, causal, sm_scale,
-                      s);
-  return launch<128>(q, k, v, o, lse, b, sq, skv, h, hkv, d, causal, sm_scale,
-                     s);
+    return launch<64>(q, k, v, o, lse, b, sq, skv, h, hkv, d, causal,
+                      q_offset, sm_scale, s);
+  return launch<128>(q, k, v, o, lse, b, sq, skv, h, hkv, d, causal,
+                     q_offset, sm_scale, s);
 }

@@ -60,34 +60,44 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v on different devices")
 
 
-def flash_work(q, k, causal: bool) -> tuple[float, float]:
+def causal_pairs(sq: int, skv: int, q_offset: int = 0) -> int:
+    """The (q, k) pairs a top-left causal mask keeps when row i keeps the
+    keys up to ``q_offset + i``: min(q_offset + i + 1, skv) a row."""
+    full = max(0, min(sq, skv - q_offset))     # rows below the last key
+    pairs = full * (2 * q_offset + full + 1) // 2
+    return pairs + (sq - full) * skv
+
+
+def flash_work(q, k, causal: bool, q_offset: int = 0
+               ) -> tuple[float, float]:
     """(FLOPs, bytes) of one forward: the two products, 4 b h d per (q, k)
-    pair the mask keeps (sq skv, or about half of it where causal); q, k,
-    v read once, o and the f32 lse written once. The bound the kernel rows
+    pair the mask keeps (sq skv, or `causal_pairs` where causal); q, k, v
+    read once, o and the f32 lse written once. The bound the kernel rows
     of ``PERF.md`` use."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if not causal:
-        pairs = sq * skv
-    elif sq <= skv:                  # top-left: row i keeps i + 1 keys
-        pairs = sq * (sq + 1) / 2
-    else:
-        pairs = skv * (skv + 1) / 2 + (sq - skv) * skv
+    pairs = causal_pairs(sq, skv, q_offset) if causal else sq * skv
     flops = 4.0 * b * h * d * pairs
     nbytes = (q.element_size() * (2 * b * sq * h * d + 2 * b * skv * hkv * d)
               + 4 * b * h * sq)
     return flops, nbytes
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     """q: (b, sq, h, d); k, v: (b, skv, kv, d) with kv dividing h (kv == h
-    is pre-expanded kv). Causal masking is top-left (qpos >= kpos)."""
+    is pre-expanded kv). Causal masking is top-left (qpos >= kpos), the
+    queries at absolute positions ``q_offset + i`` (a rank's rows of a
+    sequence-sharded attention); 0 is the plain top-left mask."""
     _check(q, k, v)
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal)
+        return flash_attention_ref(q, k, v, causal, q_offset)
     if q.device.type == "meta":
         route(q.dtype, q.shape[3])
-        build.record_work("flash_attention", *flash_work(q, k, causal))
+        build.record_work("flash_attention",
+                          *flash_work(q, k, causal, q_offset))
         return (torch.empty_like(q), torch.empty(
             (q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
             device=q.device))
@@ -103,7 +113,7 @@ def flash_attention(q, k, v, causal: bool = True):
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = build.load()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, sq, skv, h, hkv, d, int(causal))
+            lse.data_ptr(), b, sq, skv, h, hkv, d, int(causal), q_offset)
     stream = build.stream_ptr(q.device)
     if kernel == "wgmma":
         # the TMA unit reads q, k and v from 16-byte aligned addresses

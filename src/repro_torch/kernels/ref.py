@@ -66,14 +66,19 @@ def expand_kv(k, heads: int):
     return k if kv == heads else torch.repeat_interleave(k, heads // kv, dim=2)
 
 
-def causal_mask(sq: int, skv: int, device) -> torch.Tensor:
-    """Top-left causal mask (qpos >= kpos), as the Pallas kernel masks."""
-    return (torch.arange(sq, device=device)[:, None]
+def causal_mask(sq: int, skv: int, device, q_offset: int = 0
+                ) -> torch.Tensor:
+    """Top-left causal mask (qpos >= kpos), as the Pallas kernel masks,
+    with the queries at absolute positions ``q_offset + i`` (the
+    reference's ``flash_attention_jnp`` offset): row i keeps the keys up
+    to ``q_offset + i``."""
+    return (torch.arange(sq, device=device)[:, None] + q_offset
             >= torch.arange(skv, device=device)[None, :])
 
 
-def flash_attention_ref(q, k, v, causal: bool = True):
-    """q: (b, sq, h, d); k, v: (b, skv, kv, d), kv dividing h.
+def flash_attention_ref(q, k, v, causal: bool = True, q_offset: int = 0):
+    """q: (b, sq, h, d); k, v: (b, skv, kv, d), kv dividing h; causal
+    row i keeps the keys up to ``q_offset + i``.
 
     Returns (o in q's dtype, lse (b, h, sq) in f32).
     """
@@ -82,8 +87,8 @@ def flash_attention_ref(q, k, v, causal: bool = True):
     ve = expand_kv(v, h).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ke) * (1.0 / math.sqrt(d))
     if causal:
-        s = s.masked_fill(~causal_mask(q.shape[1], k.shape[1], q.device),
-                          float("-inf"))
+        s = s.masked_fill(~causal_mask(q.shape[1], k.shape[1], q.device,
+                                       q_offset), float("-inf"))
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)

@@ -24,15 +24,18 @@ nothing is lowered or compiled. Results are appended to ``--out`` after
 every cell, so an interrupted run resumes where it stopped. There is no
 ``--save-hlo``: there is no HLO.
 
-The port has no tensor-parallel layers yet (ROADMAP item 11d): the 16
-ranks of a ``model`` group each compute every layer whole and hold every
-``model``-mapped dim whole. So ``flops_per_device``,
-``bytes_per_device_hbm`` and ``useful_flops_ratio`` are the port's own,
-about 16 times the reference's where the model axis would cut, and are
-not the reference's numbers. A serving cell holds whole weights on every
-rank (the port's serving steps gather no FSDP slice), so its params are
-traced with FSDP off; its rows are cut over the dp ranks as the
-reference's are. The optimizer is the default AdamW without a clip: a
+A train cell of a tensor-parallel family (dense, vlm:
+`registry.TENSOR_PARALLEL`) traces the tensor-parallel step: rank 0
+holds its ``1/16`` of every leaf the spec cuts over ``model`` and
+computes the layers' share those leaves carry (``"model": "tp"`` in the
+record). Every other family's train cells, and every serving cell, keep
+each layer whole on every rank of a ``model`` group (``"model":
+"replicated"``): there ``flops_per_device``, ``bytes_per_device_hbm``
+and ``useful_flops_ratio`` are the port's own, up to 16 times the
+reference's where the model axis would cut. A serving cell holds whole
+weights on every rank (the port's serving steps gather no FSDP slice),
+so its params are traced with FSDP off; its rows are cut over the dp
+ranks as the reference's are. The optimizer is the default AdamW without a clip: a
 clip reads the gradient norm back to the host, which a meta tensor
 cannot give.
 """
@@ -85,7 +88,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                                registry.input_specs(cfg, shape, rules))
     else:
         rules = ShardingRules(mesh)
-        params = registry.abstract_params(cfg, rules)
+        params = registry.abstract_params(cfg, rules, serving=True)
         inputs = registry.input_specs(cfg, shape, rules)
         if shape.kind == "prefill":
             summary = analyze_step(build_prefill_step(cfg, shape), params,
@@ -105,8 +108,10 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         collective_bytes_per_device=summary["collective_bytes_per_device"],
         model_flops=model_flops_for(cfg, shape),
         per_collective=summary["per_collective"])
+    tp = shape.kind == "train" and registry.tensor_parallel(cfg)
     return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
             "status": "ok", "chips": chips, "trace_s": round(t_trace, 2),
+            "model": "tp" if tp else "replicated",
             "memory": summary["memory"],
             "bytes_per_device_hbm": summary["memory"]["argument_bytes"]
             + summary["memory"]["temp_bytes"],

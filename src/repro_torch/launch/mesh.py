@@ -70,17 +70,20 @@ def fake_world(world_size: int):
     The ``fake`` c10d backend is registered by importing
     ``torch.testing._internal.distributed.fake_pg``; without that import
     ``init_process_group`` raises ``Unknown c10d backend type FAKE``. The
-    backend string maps both ``cpu`` and ``meta`` tensors to it: with the
-    ``cpu`` entry alone, a collective on a meta tensor works but a
+    backend string maps ``cpu``, ``meta`` and ``cuda`` tensors to it: with
+    the ``cpu`` entry alone, a collective on a meta tensor works but a
     point-to-point send or receive (the ring's ``batch_isend_irecv``)
-    raises ``No backend type associated with device type meta``. The
-    group is destroyed on exit."""
+    raises ``No backend type associated with device type meta``; the
+    ``cuda`` entry lets one rank's local step run on a card, its
+    collectives moving nothing (a yardstick of the time and memory a
+    rank's own work takes). The group is destroyed on exit."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
         raise RuntimeError("a default process group is already up")
-    dist.init_process_group("cpu:fake,meta:fake", store=FakeStore(),
-                            rank=0, world_size=world_size)
+    dist.init_process_group("cpu:fake,meta:fake,cuda:fake",
+                            store=FakeStore(), rank=0,
+                            world_size=world_size)
     try:
         yield
     finally:

@@ -11,8 +11,9 @@ stand-ins the dry run (`repro_torch.launch.dryrun`) traces a step on, the
 port of the reference's ``ShapeDtypeStruct`` ones: tensors on the
 ``meta`` device (a shape and a dtype, no data) at the shape this rank
 holds under ``rules`` (``rules.sharding(...).local_shape``: dims mapped to
-dp axes cut, ``model``-mapped dims whole, as the port's layers compute
-them). Two differences from the reference's: integer inputs are int64,
+dp axes cut; ``model``-mapped dims cut for the training leaves of a
+tensor-parallel family (`TENSOR_PARALLEL`), whole for every other family
+and for serving, as the port's layers compute them). Two differences from the reference's: integer inputs are int64,
 the port's index type (the reference's are int32), and a cache's
 ``length`` is the host int the port's decode reads, set to the last
 position so that one decode step fits (the reference's is an int32
@@ -40,6 +41,17 @@ _FAMILIES = {
 }
 
 
+# the families whose training layers run tensor-parallel over ``model``
+# (`repro_torch.dist.tensor_parallel`); every other family, and serving,
+# computes each layer whole on every rank of a model group
+TENSOR_PARALLEL = frozenset({"dense", "vlm"})
+
+
+def tensor_parallel(cfg: ModelConfig) -> bool:
+    """Whether ``cfg``'s training step cuts its leaves over ``model``."""
+    return cfg.family in TENSOR_PARALLEL
+
+
 def family_module(cfg: ModelConfig):
     return importlib.import_module(_FAMILIES[cfg.family])
 
@@ -59,24 +71,27 @@ def init_params(cfg: ModelConfig, seed: int, device) -> dict:
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, rules=None):
-    """The loss of this rank's rows. ``rules`` reach the MoE family alone
-    (its token groups are the dp ranks'); every other family computes
-    each row on its own, the same on any mesh."""
-    if cfg.family == "moe":
+    """The loss of this rank's rows. ``rules`` reach the MoE family (its
+    token groups are the dp ranks') and the tensor-parallel ones (their
+    layers over ``model``); every other family computes each row on its
+    own, the same on any mesh."""
+    if cfg.family == "moe" or tensor_parallel(cfg):
         return family_module(cfg).loss_fn(params, cfg, batch, rules=rules)
     return family_module(cfg).loss_fn(params, cfg, batch)
 
 
-def abstract_params(cfg: ModelConfig, rules) -> dict:
+def abstract_params(cfg: ModelConfig, rules, serving: bool = False) -> dict:
     """Every param leaf as a meta tensor of its dtype at this rank's local
-    shape under ``rules``."""
-    return _abstract(param_specs(cfg), rules)
+    shape under ``rules``: cut over ``model`` for training a
+    tensor-parallel family, whole over it for ``serving``."""
+    return _abstract(param_specs(cfg), rules,
+                     model=tensor_parallel(cfg) and not serving)
 
 
-def _abstract(specs: dict, rules) -> dict:
+def _abstract(specs: dict, rules, model: bool) -> dict:
     # sorted leaf order, as `init_params` draws them
     return {name: _meta(rules.sharding(*specs[name].logical,
-                                       dims=specs[name].shape),
+                                       dims=specs[name].shape, model=model),
                         specs[name].shape, TORCH_DTYPES[specs[name].dtype])
             for name in sorted(specs)}
 
@@ -113,7 +128,7 @@ def abstract_cache(cfg: ModelConfig, rules, batch: int,
                    max_seq: int) -> dict:
     """The cache of ``batch`` rows and ``max_seq`` positions as meta
     tensors at this rank's local shapes; ``length`` is ``max_seq - 1``."""
-    cache = _abstract(cache_specs(cfg, batch, max_seq), rules)
+    cache = _abstract(cache_specs(cfg, batch, max_seq), rules, model=False)
     cache["length"] = max_seq - 1
     return cache
 

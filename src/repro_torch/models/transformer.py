@@ -8,6 +8,11 @@ names, so the two packages' bucket layouts are equal. The forward loops
 over the layers; with ``cfg.remat`` each layer is recomputed in the
 backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does there.
 
+Training takes ``rules``: on a mesh whose ``model`` extent is above 1 the
+layers run tensor-parallel (`repro_torch.dist.tensor_parallel`) on this
+rank's slices of the model-cut leaves; with no rules, or ``model`` of
+extent 1, they are the plain whole layers. Serving is not tensor-parallel.
+
 Serving takes the f32 params as the reference's does and casts at each
 use. A cache is a dict of tensors and ``length``, a host int: the number
 of positions written, so writing at ``pos`` and masking cost no device
@@ -22,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.buckets import TORCH_DTYPES
+from repro_torch.dist import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models.common import ParamSpec
 
@@ -67,14 +73,23 @@ def param_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
+def tp_context(cfg: ModelConfig, rules):
+    """The tensor-parallel context of ``rules`` for ``cfg``'s leaves (None
+    without rules or at ``model`` extent 1)."""
+    return TP.context(rules, param_specs(cfg))
+
+
 def attn_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True,
-               prefill=False):
+               prefill=False, tp=None):
     """Pre-norm attention with its residual: the flash kernel forward
-    (top-left causal or none) and the recompute-from-lse backward. With
-    ``prefill`` the forward alone, returning ``(x, (k, v))`` with k, v at
-    the kv heads (the cache's entries)."""
+    (top-left causal or none) and the recompute-from-lse backward; with
+    ``tp``, over ``model`` (`layers.attention_tp`). With ``prefill`` the
+    forward alone, returning ``(x, (k, v))`` with k, v at the kv heads
+    (the cache's entries)."""
     b, s, _ = x.shape
     xn = L.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    if tp is not None:
+        return x + L.attention_tp(xn, lp, cfg, positions, causal, tp)
     q, k, v = L.attn_project_qkv(xn, lp, cfg, positions)
     if prefill:
         o = L.attention_prefill(q, k, v, causal)
@@ -85,13 +100,15 @@ def attn_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True,
 
 
 def dense_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True,
-                prefill=False):
+                prefill=False, tp=None):
     """Attention + MLP (``cfg.mlp``) with pre-norms and residuals; with
-    ``prefill``, ``(x, (k, v))`` as ``attn_block`` gives them."""
-    out = attn_block(x, lp, cfg, positions, causal=causal, prefill=prefill)
+    ``prefill``, ``(x, (k, v))`` as ``attn_block`` gives them; with
+    ``tp``, both over ``model``."""
+    out = attn_block(x, lp, cfg, positions, causal=causal, prefill=prefill,
+                     tp=tp)
     x, kv = out if prefill else (out, None)
     xn = L.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    x = x + L.mlp(xn, lp, cfg)
+    x = x + L.mlp(xn, lp, cfg, tp)
     return (x, kv) if prefill else x
 
 
@@ -144,37 +161,52 @@ def run_layers(x, stacked: dict, body, remat: bool):
 
 
 def decoder_stack(x, params: dict, cfg: ModelConfig, positions, *,
-                  causal=True, block_fn=dense_block):
+                  causal=True, block_fn=dense_block, tp=None):
     """The layer loop over the stacked keys present (gelu2 has no
-    ``w_gate``); returns the final hidden states in the compute dtype."""
+    ``w_gate``); returns the final hidden states in the compute dtype.
+    With ``tp`` the dense block runs tensor-parallel over ``model``."""
     cd = TORCH_DTYPES[cfg.compute_dtype]
     stacked = {k: params[k] for k in LAYER_KEYS if k in params}
+    kw = {} if tp is None else {"tp": tp}
     return run_layers(
         x, stacked,
-        lambda x, lp: block_fn(x, lp, cfg, positions, causal=causal).to(cd),
+        lambda x, lp: block_fn(x, lp, cfg, positions, causal=causal,
+                               **kw).to(cd),
         cfg.remat)
 
 
-def final_logits(x, params: dict, cfg: ModelConfig):
+def vocab_tp(tp):
+    """``tp`` where the vocab is cut over ``model`` (``embed`` and
+    ``unembed`` share the vocab dim, so one leaf tells), else None: the
+    divisibility fallback leaves the vocab whole on every rank."""
+    return tp if tp is not None and tp.is_cut("embed") else None
+
+
+def final_logits(x, params: dict, cfg: ModelConfig, tp=None):
     """The final norm and the logits (through the tied embedding where
-    ``cfg.tie_embeddings``)."""
+    ``cfg.tie_embeddings``); with ``tp`` cutting the vocab over
+    ``model``, this rank's vocab columns."""
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     unembed = (params["embed"].T if cfg.tie_embeddings
                else params["unembed"])
-    return L.lm_logits(x, unembed)
+    return L.lm_logits(x, unembed, vocab_tp(tp))
 
 
-def forward(params: dict, cfg: ModelConfig, tokens):
+def forward(params: dict, cfg: ModelConfig, tokens, tp=None):
     b, s = tokens.shape
     x = L.embed_tokens(params["embed"], tokens,
-                       TORCH_DTYPES[cfg.compute_dtype])
+                       TORCH_DTYPES[cfg.compute_dtype], vocab_tp(tp))
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = decoder_stack(x, params, cfg, positions)
-    return final_logits(x, params, cfg)
+    x = decoder_stack(x, params, cfg, positions, tp=tp)
+    return final_logits(x, params, cfg, tp)
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
-    return L.xent_loss(forward(params, cfg, batch["tokens"]), batch["labels"])
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, rules=None):
+    """The mean loss of this rank's rows; under ``rules`` with a ``model``
+    extent above 1, tensor-parallel."""
+    tp = tp_context(cfg, rules)
+    return L.xent_loss(forward(params, cfg, batch["tokens"], tp),
+                       batch["labels"], vocab_tp(tp))
 
 
 # -- KV cache ----------------------------------------------------------------

@@ -147,9 +147,10 @@ def global_norm(tree: dict) -> torch.Tensor:
 def sharded_global_norm(owned: dict, counted, group) -> torch.Tensor:
     """The global norm of a gradient tree split over the ranks of
     ``group``: each rank sums the squares of the leaves of ``owned`` whose
-    names are in ``counted`` (its slices, and a replicated leaf on one
-    rank only, so that it is counted once), and one all-reduce adds the
-    ranks' sums."""
+    names are in ``counted`` (its slices, and a leaf held whole along an
+    axis of the mesh on the first rank along it only, so that each
+    element of the global tree is counted once over the whole mesh), and
+    one all-reduce adds the ranks' sums."""
     some = next(iter(owned.values()))
     sq = torch.zeros((), dtype=torch.float32, device=some.device)
     for k, x in owned.items():

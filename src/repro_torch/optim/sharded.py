@@ -58,43 +58,50 @@ def _own(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def constrain_zero1(tree: dict, specs: dict, rules: ShardingRules) -> dict:
+def constrain_zero1(tree: dict, specs: dict, rules: ShardingRules,
+                    model: bool = True) -> dict:
     """Each full leaf of ``tree`` cut to this rank's ZeRO-1 slice, as its
     own contiguous copy (the reference's constraint to the ZeRO-1 layout,
-    the RS point). ``specs`` are the leaves' ParamSpecs."""
-    z = zero1_shardings(specs, rules)
-    return {k: _own(NamedSharding(rules.mesh, z[k]).local(x))
-            for k, x in tree.items()}
+    the RS point). ``specs`` are the leaves' ParamSpecs; ``model`` is
+    `StateSharding`'s."""
+    z = StateSharding(specs, rules, model=model).state
+    return {k: _own(z[k].local(x)) for k, x in tree.items()}
 
 
-def gather_zero1(tree: dict, specs: dict, rules: ShardingRules) -> dict:
+def gather_zero1(tree: dict, specs: dict, rules: ShardingRules,
+                 model: bool = True) -> dict:
     """The way back from `constrain_zero1`: every full leaf, on every rank
-    (collective over the dp ranks)."""
-    z = zero1_shardings(specs, rules)
-    return {k: NamedSharding(rules.mesh, z[k]).gather(x)
-            for k, x in tree.items()}
+    (collective over the ranks that cut each leaf: its dp ranks, and its
+    model ranks where ``model``)."""
+    z = StateSharding(specs, rules, model=model).state
+    return {k: z[k].gather(x) for k, x in tree.items()}
 
 
 class StateSharding:
     """Where each leaf of a trainer state lives on ``rules``' mesh.
 
     ``params[k]`` is the leaf's param sharding (its logical spec: cut over
-    the dp axes only for an FSDP ``wemb`` dim), ``state[k]`` that of its
-    mu, nu and reduced gradient: the ZeRO-1 spec where ``zero1`` (the
-    reference's ``cfg.zero1``), else the param spec. ``specs`` are the
-    leaves' ParamSpecs, in the tree's order.
+    ``model`` where ``model`` is set, the layout of a tensor-parallel
+    family, else whole over it, and over the dp axes only for an FSDP
+    ``wemb`` dim),
+    ``state[k]`` that of its mu, nu and reduced gradient: the ZeRO-1 spec
+    where ``zero1`` (the reference's ``cfg.zero1``), else the param spec,
+    so a ZeRO-1 leaf of a tensor-parallel family is cut over both.
+    ``specs`` are the leaves' ParamSpecs, in the tree's order.
     """
 
     def __init__(self, specs: dict, rules: ShardingRules,
-                 zero1: bool = True):
+                 zero1: bool = True, model: bool = True):
         self.mesh = rules.mesh
         self.shapes = {k: tuple(ps.shape) for k, ps in specs.items()}
-        self.params = {k: rules.sharding(*ps.logical, dims=ps.shape)
+        self.params = {k: rules.sharding(*ps.logical, dims=ps.shape,
+                                         model=model)
                        for k, ps in specs.items()}
-        self.state = ({k: NamedSharding(self.mesh, spec)
+        self.state = ({k: NamedSharding(self.mesh, spec, model=model)
                        for k, spec in zero1_shardings(specs, rules).items()}
                       if zero1 else dict(self.params))
         self.n = dp_size(self.mesh)
+        self.m = self.mesh.shape.get("model", 1) if model else 1
 
     def local(self, params: dict, mu: dict, nu: dict) -> tuple:
         """(params, mu, nu) of full trees cut to this rank's slices, each

@@ -15,11 +15,12 @@ sharding rules where the caller asks for an elastic restart.
 On ``rules`` over more than one rank every rank runs ``train`` in its own
 process (`_train_over_ranks`). Global rank 0 hosts the checkpointer and
 its shadow, where the reference's single controller holds the host tree.
-The capture is the owned slices (`RankCapture`): each dp rank of model
-index 0 packs only the reduced slices its reduce-scatter left it, a
-replicated leaf is sent by dp rank 0 alone, and the slices go over the dp
-group to rank 0, which assembles the bucket flats, so every reduced
-element reaches the shadow exactly once.
+The capture is the owned slices (`RankCapture`): each rank packs only the
+reduced slices its reduce-scatter (and, for a tensor-parallel family, its
+model cut) left it, a dim held whole is sent by the first rank along it
+alone, and each rank with a share sends it to rank 0, which assembles
+the bucket flats, so every reduced element reaches the shadow exactly
+once.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ from repro_torch.core.recovery import (FailurePlan, broadcast_checkpoint,
 from repro_torch.core.shadow import ShadowCluster
 from repro_torch.data.synthetic import SyntheticStream, device_batch
 from repro_torch.device import resolve
-from repro_torch.dist.sharding import (ShardingRules, dp_axes,
+from repro_torch.dist.sharding import (ShardingRules, unravel, dp_axes,
                                        make_smoke_mesh)
 from repro_torch.kernels import ops
 from repro_torch.optim.functional import OptimizerConfig, TrainState
@@ -141,14 +142,19 @@ class RankCapture:
     """The capture over ranks: this rank's owned reduced slices -> global
     rank 0, which packs the full bucket flats (a `Capture`).
 
-    ``sharding`` is the step's `StateSharding`. Each dp rank of model
-    index 0 packs the slices it owns (one pack launch into one flat, each
-    slice with its cut dim in front: the ring's chunk) and the flats are
-    gathered over the dp group to rank 0; a leaf no rank owns a slice of
-    (replicated) is taken from rank 0's own reduced leaf. Ranks of another
-    model index send nothing. ``marks`` lists what this rank contributed
-    at the last call, as (leaf, cut dim or None, first, end) along that
-    dim (None: the whole leaf).
+    ``sharding`` is the step's `StateSharding`. A leaf's reduced gradient
+    may be cut over the dp axes (its ZeRO-1 dim) and over ``model`` (a
+    tensor-parallel family's model dim); each cut is sent by every rank
+    along it, and a dim held whole by the first rank along it alone. Each
+    rank with a share packs it into one flat (one pack launch) and sends
+    it to global rank 0, which receives exactly those flats, each at its
+    own size, and rebuilds each global leaf from its cuts. A rank with no
+    share (a model index above 0 where no leaf is cut over ``model``)
+    sends nothing. A leaf cut nowhere is taken from rank 0's own reduced
+    leaf. ``marks`` lists what this rank contributed at the last call, as
+    (leaf, ((dim, first, end), ...)), the cuts along which its slice was
+    taken (empty: the whole leaf); ``received`` is the number of elements
+    rank 0 received from the other ranks.
     """
 
     def __init__(self, sharding, layout: BucketLayout, device: torch.device,
@@ -156,48 +162,90 @@ class RankCapture:
         self.sh = sharding
         self.device = device
         mesh = sharding.mesh
-        self.dp = dp_axes(mesh)
-        self.group = mesh.group_over(self.dp)
-        self.index = mesh.coordinate(self.dp)
-        self.sends = all(c == 0 for a, c in mesh.coords.items()
-                         if a not in self.dp)
-        self.cut = [k for k, z in sharding.state.items() if z.n > 1]
-        self.whole = [k for k, z in sharding.state.items() if z.n == 1]
-        self.sizes = [math.prod(sharding.shapes[k]) // sharding.n
-                      for k in self.cut]
-        self.offsets = [sum(self.sizes[:j]) for j in range(len(self.cut))]
+        self.group = mesh.mesh_group
+        self.ranks = mesh.ranks
+        dp = dp_axes(mesh)
+        extents = [mesh.shape[a] for a in mesh.axis_names]
+        # each mesh rank's share, in mesh order
+        self.plans = []
+        for i in range(mesh.size):
+            c = dict(zip(mesh.axis_names, unravel(i, extents)))
+            a = 0
+            for ax in dp:
+                a = a * mesh.shape[ax] + c[ax]
+            self.plans.append(self._plan(a, c.get("model", 0)))
+        self.sizes = [sum(e[3] for e in plan) for plan in self.plans]
+        self.index = mesh.ranks.index(dist.get_rank())
+        self.whole = [k for k, z in sharding.state.items()
+                      if z.n == 1 and z.m == 1]
         self.host_rank = dist.get_rank() == 0
         self.inner = Capture(layout, device, host) if self.host_rank \
             else None
         self.marks: list = []
+        self.received = 0
+
+    def _plan(self, a: int, b: int) -> list:
+        """(leaf, cuts, offset, size) of what the rank at dp index ``a``
+        and model index ``b`` sends."""
+        plan, off = [], 0
+        for k, z in self.sh.state.items():
+            if z.n == 1 and z.m == 1:
+                continue
+            if (z.n == 1 and a) or (z.m == 1 and b):
+                continue
+            shape, cuts = list(self.sh.shapes[k]), []
+            for d, k_, i in ((z.dim, z.n, a), (z.model_dim, z.m, b)):
+                if k_ > 1:
+                    s = shape[d] // k_
+                    cuts.append((d, i * s, (i + 1) * s))
+            size = math.prod(self.sh.shapes[k])
+            for d, lo, hi in cuts:
+                size = size // shape[d] * (hi - lo)
+            plan.append((k, tuple(cuts), off, size))
+            off += size
+        return plan
 
     def __call__(self, owned: dict) -> Optional[dict]:
-        self.marks = []
-        if not self.sends:
-            return None
-        n, sh = self.sh.n, self.sh
-        flat = alloc_flat(sum(self.sizes), torch.float32, self.device)
-        if self.cut:
-            ops.pack_bucket([owned[k].movedim(sh.state[k].dim, 0).reshape(-1)
-                             for k in self.cut], self.offsets, flat)
-        for k in self.cut:
-            d = sh.state[k].dim
-            s = sh.shapes[k][d] // n
-            self.marks.append((k, d, self.index * s, (self.index + 1) * s))
+        mine = self.plans[self.index]
+        self.marks = [(k, cuts) for k, cuts, _, _ in mine]
         if self.index == 0:
-            self.marks += [(k, None, 0, None) for k in self.whole]
-        flats = ([torch.empty_like(flat) for _ in range(n)]
-                 if self.host_rank else None)
-        dist.gather(flat, flats, dst=0, group=self.group)
+            self.marks += [(k, ()) for k in self.whole]
+        flat = alloc_flat(self.sizes[self.index], torch.float32, self.device)
+        if mine:
+            ops.pack_bucket([owned[k].reshape(-1) for k, _, _, _ in mine],
+                            [off for _, _, off, _ in mine], flat)
         if not self.host_rank:
+            if mine:
+                _wait([dist.P2POp(dist.isend, flat, 0, self.group)])
             return None
+        flats = [flat if i == self.index else
+                 alloc_flat(size, torch.float32, self.device) if size
+                 else None for i, size in enumerate(self.sizes)]
+        recv = [(i, f) for i, f in enumerate(flats)
+                if f is not None and i != self.index]
+        _wait([dist.P2POp(dist.irecv, f, self.ranks[i], self.group)
+               for i, f in recv])
+        self.received = sum(f.numel() for _, f in recv)
         full = {k: owned[k] for k in self.whole}
-        for k, o, size in zip(self.cut, self.offsets, self.sizes):
-            d, shape = sh.state[k].dim, sh.shapes[k]
-            front = (shape[d],) + shape[:d] + shape[d + 1:]
-            full[k] = torch.cat([f[o:o + size] for f in flats]).reshape(
-                front).movedim(0, d)
-        return self.inner(full)
+        for plan, f in zip(self.plans, flats):
+            for k, cuts, off, size in plan:
+                if k not in full:
+                    full[k] = torch.empty(self.sh.shapes[k],
+                                          dtype=torch.float32,
+                                          device=self.device)
+                idx = [slice(None)] * len(self.sh.shapes[k])
+                for d, lo, hi in cuts:
+                    idx[d] = slice(lo, hi)
+                dst = full[k][tuple(idx)]
+                dst.copy_(f[off:off + size].reshape(dst.shape))
+        return self.inner({k: full[k] for k in self.sh.shapes})
+
+
+def _wait(p2p: list) -> None:
+    """Issue the point-to-point ops ``p2p`` together and wait for all."""
+    if p2p:
+        for req in dist.batch_isend_irecv(p2p):
+            req.wait()
 
 
 def train(cfg: ModelConfig, *,
@@ -290,7 +338,7 @@ def train(cfg: ModelConfig, *,
                                         "device_flats", False))
 
     capture = make_capture()
-    step_fn = build_train_step(cfg, opt, lr_fn)
+    step_fn = build_train_step(cfg, opt, lr_fn, rules)
     stats = LoopStats(checkpointer=checkpointer)
     ema_iter = None
     step = int(state.step)
@@ -315,7 +363,7 @@ def train(cfg: ModelConfig, *,
                 # function, shadow plane and channel, and the capture,
                 # whose buffers follow the old plane's layout)
                 rules, device = nr, placement_device(nr)
-                step_fn = build_train_step(cfg, opt, lr_fn)
+                step_fn = build_train_step(cfg, opt, lr_fn, rules)
                 if isinstance(checkpointer, CheckmateCheckpointer):
                     from repro_torch.core.elastic import rebuild_shadow
                     checkpointer.reconfigure(rebuild_shadow(

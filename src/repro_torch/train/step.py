@@ -19,6 +19,15 @@ before the forward, and their gradients reduce-scatter straight onto the
 slice the update writes; nothing is gathered after. The reduced slices
 are the capture point: each rank returns the ones it owns. At n = 1 the
 step runs today's kernels in today's order.
+
+For a tensor-parallel family (`registry.TENSOR_PARALLEL`) on a mesh whose
+``model`` extent m is above 1, each rank holds its model slice of every
+leaf the spec cuts over ``model``; the forward and backward run the
+layers of `repro_torch.dist.tensor_parallel` on those slices, and the
+dp reduce-scatter, the update and the all-gather above run on them as on
+whole leaves (the ZeRO-1 dim is another dim than the model cut). The
+grad norm sums each element of the global tree once over the whole mesh:
+a leaf whole over ``model`` on model rank 0 only.
 """
 from __future__ import annotations
 
@@ -43,16 +52,27 @@ from repro_torch.optim.sharded import StateSharding
 
 
 def state_sharding(cfg: ModelConfig, rules) -> StateSharding:
-    """Where each leaf of ``cfg``'s trainer state lives under ``rules``."""
-    return StateSharding(registry.param_specs(cfg), rules, zero1=cfg.zero1)
+    """Where each leaf of ``cfg``'s trainer state lives under ``rules``
+    (cut over ``model`` too for a tensor-parallel family)."""
+    return StateSharding(registry.param_specs(cfg), rules, zero1=cfg.zero1,
+                         model=registry.tensor_parallel(cfg))
+
+
+def model_size(cfg: ModelConfig, rules) -> int:
+    """The ``model`` extent ``cfg``'s layers are split over under
+    ``rules``: 1 for a family that computes each layer whole."""
+    if rules is None or not registry.tensor_parallel(cfg):
+        return 1
+    return rules.mesh.shape.get("model", 1)
 
 
 def make_train_state(cfg: ModelConfig, seed: int = 0, device=None,
                      rules=None) -> TrainState:
     """Fresh random params (from ``seed``) and zero moments on ``device``;
-    on ``rules`` over more than one dp rank, this rank's slices of them."""
+    on ``rules`` over more than one rank, this rank's slices of them."""
     state = init_state(registry.init_params(cfg, seed, resolve(device)))
-    if rules is None or dp_size(rules.mesh) == 1:
+    if rules is None or (dp_size(rules.mesh) == 1
+                         and model_size(cfg, rules) == 1):
         return state
     p, m, v = state_sharding(cfg, rules).local(state.params, state.mu,
                                                state.nu)
@@ -86,7 +106,8 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
     The state is updated in place. ``grads`` are the f32 gradients the
     update applied (sum over microbatches, then divided by their count, as
     the JAX step does; over n > 1 dp ranks, this rank's reduced ZeRO-1
-    slices, and the whole reduced leaf where nothing is cut); ``metrics``
+    slices, and the whole reduced leaf where nothing is cut; over m > 1
+    model ranks, of the leaves' model slices); ``metrics``
     holds the loss and grad norm as device scalars (over ranks, their
     global values) and the lr and clip scale as the host floats that were
     applied. ``train_step.sharding`` is the `StateSharding` of ``rules``
@@ -94,7 +115,8 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
     """
     cd = TORCH_DTYPES[cfg.compute_dtype]
     n = 1 if rules is None else dp_size(rules.mesh)
-    group_rules = rules if n > 1 else None
+    m = model_size(cfg, rules)
+    group_rules = rules if n > 1 or m > 1 else None
 
     def loss_of(params, microbatch):
         # cast the whole tree to the compute dtype before the layers
@@ -141,7 +163,7 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
                    "grad_scale": scale}
         return state, metrics, grads
 
-    if n == 1:
+    if n == 1 and m == 1:
         train_step.sharding = (None if rules is None
                                else state_sharding(cfg, rules))
         return train_step
@@ -151,25 +173,33 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
     dp = dp_axes(mesh)
     group = mesh.group_over(dp)
     first = mesh.coordinate(dp) == 0
+    first_model = m == 1 or mesh.coordinate("model") == 0
     for k, z in sh.state.items():
         if z.n > 1 and z.axes != dp:
             raise ValueError(f"{k}: state cut over {z.axes}, not {dp}")
-    # a rank sums the squares of its slices, and of a replicated leaf
-    # only where it is the first dp rank
-    counted = {k for k, z in sh.state.items() if z.n > 1 or first}
+    # a rank sums the squares of its slices, of a leaf whole over dp only
+    # where it is the first dp rank, and of a leaf whole over model only
+    # where it is the first model rank
+    counted = {k for k, z in sh.state.items()
+               if (z.n > 1 or first) and (z.m > 1 or first_model)}
+    norm_group = group if m == 1 else mesh.mesh_group
 
     def dp_train_step(state: TrainState, batch: dict):
         if "mask" in batch:
             raise ValueError("a masked batch over more than one rank needs "
                              "the global mask count; no stream has a mask")
-        # FSDP leaves: the one all-gather before the forward
-        full = {k: sh.params[k].gather(p) for k, p in state.params.items()}
+        # FSDP leaves: the one all-gather over dp before the forward
+        full = {k: sh.params[k].gather_dp(p)
+                for k, p in state.params.items()}
         grads, loss = local_grads(full, batch)
         del full
         nt = torch.full((), n, dtype=torch.float32, device=loss.device)
         owned = {}
         for k in list(grads):
             g, z = grads.pop(k), sh.state[k]
+            if n == 1:             # model ranks alone: nothing to reduce
+                owned[k] = g
+                continue
             if z.n == 1:           # replicated: all-reduced whole
                 owned[k] = ring_all_reduce_rs_ag(g, mesh, dp)[0].div_(nt)
                 continue
@@ -182,9 +212,10 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
                                      + front.shape[1:]).movedim(0, d) \
                 .contiguous()
             del front, chunk
-        dist.all_reduce(loss, group=group)
-        loss = loss / nt
-        gnorm = sharded_global_norm(owned, counted, group)
+        if n > 1:
+            dist.all_reduce(loss, group=group)
+            loss = loss / nt
+        gnorm = sharded_global_norm(owned, counted, norm_group)
         lr = float(lr_fn(state.step))
         scale = clip_scale(opt, float(gnorm)) if opt.grad_clip else 1.0
         step = state.step + 1
@@ -198,7 +229,7 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
                     continue
                 # ZeRO-1: update this rank's slice, then gather the params
                 d = z.dim
-                mine = z.local(p).contiguous()
+                mine = z.dp_local(p).contiguous()
                 update_(mine, owned[k], state.mu[k], state.nu[k], step, opt,
                         lr, scale)
                 acc = torch.empty((n, p.numel() // n), dtype=p.dtype,

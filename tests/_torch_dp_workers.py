@@ -81,16 +81,17 @@ def full_state(cfg, rules, state: TrainState) -> dict:
     return {"params": p, "mu": m, "nu": v, "step": state.step}
 
 
-def _run_steps(cfg, rules, state, steps, out, tag, batch=BATCH):
+def _run_steps(cfg, rules, state, steps, out, tag, batch=BATCH, opt=OPT):
     """``steps`` of the step over ``rules``: losses, the gathered reduced
     gradients, and the local and full state after them."""
-    step = build_train_step(cfg, OPT, lr_fn, rules)
+    step = build_train_step(cfg, opt, lr_fn, rules)
     sh = step.sharding
     stream = SyntheticStream(cfg, batch, SEQ, seed=0)
     for t in range(steps):
         state, met, owned = step(state, device_batch(
             stream.batch_at(t), "cpu", rules, cfg.microbatches))
         out[f"{tag}/loss/{t}"] = float(met["loss"])
+        out[f"{tag}/gnorm/{t}"] = float(met["grad_norm"])
         out[f"{tag}/grad/{t}"] = {k: sh.state[k].gather(g)
                                   for k, g in owned.items()}
     out[f"{tag}/local"] = {"params": state.params, "mu": state.mu,
@@ -100,25 +101,30 @@ def _run_steps(cfg, rules, state, steps, out, tag, batch=BATCH):
     # gather_zero1 is the way back
     specs = registry.param_specs(cfg)
     for tree in ("mu", "nu"):
-        cut = constrain_zero1(full[tree], specs, rules)
-        back = gather_zero1(getattr(state, tree), specs, rules)
+        model = registry.tensor_parallel(cfg)
+        cut = constrain_zero1(full[tree], specs, rules, model=model)
+        back = gather_zero1(getattr(state, tree), specs, rules, model=model)
         for k, t in getattr(state, tree).items():
             assert torch.equal(cut[k], t) and cut[k].is_contiguous(), k
             assert torch.equal(back[k], full[tree][k]), k
 
 
-def _captured_run(cfg, rules, state, steps, out, tag, batch=BATCH):
+def _captured_run(cfg, rules, state, steps, out, tag, batch=BATCH,
+                  keep_shadow=False, opt=OPT):
     """``steps`` of the step with a `RankCapture` into a 2-node shadow on
     global rank 0: each rank's marks of each step, and on rank 0 the
-    trainer's full state beside the shadow's consolidated checkpoint."""
-    step = build_train_step(cfg, OPT, lr_fn, rules)
+    trainer's full state beside the shadow's consolidated checkpoint and
+    the shadow's checkpoint count. With ``keep_shadow`` each rank's local
+    state is kept too, and the shadow is returned (None off rank 0)
+    instead of shut down."""
+    step = build_train_step(cfg, opt, lr_fn, rules)
     sh = step.sharding
     layout = build_buckets([(k, sh.shapes[k], "float32")
                             for k in state.params])
     full = full_state(cfg, rules, state)
     ck = None
     if dist.get_rank() == 0:
-        shadow = ShadowCluster(layout, OPT, n_nodes=2, device="cpu")
+        shadow = ShadowCluster(layout, opt, n_nodes=2, device="cpu")
         shadow.bootstrap(full["params"], full["mu"], full["nu"], 0)
         ck = CheckmateCheckpointer(shadow, channel=InProcessChannel())
     cap = RankCapture(sh, layout, torch.device("cpu"))
@@ -128,21 +134,29 @@ def _captured_run(cfg, rules, state, steps, out, tag, batch=BATCH):
             stream.batch_at(t), "cpu", rules, cfg.microbatches))
         flats = cap(owned)
         out[f"{tag}/marks/{t}"] = list(cap.marks)
+        out[f"{tag}/received/{t}"] = cap.received
         if ck is not None:
             ck.on_step(StepEvent(step=t + 1, flats=flats, lr=met["lr"],
                                  grad_scale=met["grad_scale"]))
     full = full_state(cfg, rules, state)
+    if keep_shadow:
+        out[f"{tag}/local"] = {"params": state.params, "mu": state.mu,
+                               "nu": state.nu}
     if ck is not None:
         out[f"{tag}/trainer"] = full
         out[f"{tag}/shadow"] = ck.shadow.consolidate()
+        out[f"{tag}/n_checkpoints"] = ck.n_checkpoints
+        if keep_shadow:
+            return ck.shadow
         ck.shadow.shutdown()
+    return None
 
 
-def _looped_run(cfg, rules, out, tag, batch=BATCH):
+def _looped_run(cfg, rules, out, tag, batch=BATCH, opt=OPT):
     """train(rules=) with a failure at step 2 into a 2-node async shadow
     on rank 0: losses, recoveries, and on rank 0 the trainer's full state
     beside the shadow's checkpoint."""
-    state, stats = train(cfg, steps=3, batch=batch, seq=SEQ, opt=OPT,
+    state, stats = train(cfg, steps=3, batch=batch, seq=SEQ, opt=opt,
                          lr_fn=lr_fn, device="cpu", rules=rules,
                          channel=InProcessChannel(), shadow_async=True,
                          failure_plan=FailurePlan((2,)), seed=0)
@@ -151,6 +165,7 @@ def _looped_run(cfg, rules, out, tag, batch=BATCH):
     full = full_state(cfg, rules, state)
     if dist.get_rank() == 0:
         out[f"{tag}/trainer"] = full
+        out[f"{tag}/n_checkpoints"] = stats.checkpointer.n_checkpoints
         out[f"{tag}/shadow"] = stats.checkpointer.shadow.consolidate()
         stats.checkpointer.shadow.shutdown()
 
@@ -176,6 +191,9 @@ def dp_train(rank, ref_path, out_dir):
                   "capture/4x1")
     _captured_run(dense, r22, local_state(dense, r22, start), 2, out,
                   "capture/2x2")
+    # a family whose layers are whole over model: only model index 0 sends
+    _captured_run(moe, r22, local_state(moe, r22, initial_state(
+        ref, "moe", moe)), 2, out, "capture/moe2x2")
     _looped_run(dense, r41, out, "loop/4x1")
     _looped_run(dense, fsdp41, out, "loop/fsdp")
 

@@ -20,6 +20,7 @@ rtol 1e-5 / atol 1e-6. Inside the port the trainer and its shadow are
 compared bit for bit (both run the same elementwise AdamW with the same
 scalars).
 """
+import math
 import os
 import subprocess
 import sys
@@ -213,13 +214,14 @@ def test_four_ranks_match_one_rank(ref, ranks):
             _close(four["dense/full"][tree][k], t.numpy(), k, STATE)
 
 
-@pytest.mark.parametrize("tag", ["capture/4x1", "capture/2x2", "loop/4x1",
-                                 "loop/fsdp", "capture/3x1", "loop/3x1"])
+@pytest.mark.parametrize("tag", ["capture/4x1", "capture/2x2",
+                                 "capture/moe2x2", "loop/4x1", "loop/fsdp",
+                                 "capture/3x1", "loop/3x1"])
 def test_trainer_state_is_the_shadows_bitwise(request, tag):
     """Rank 0's gathered trainer state equals the consolidated checkpoint
     of the shadow it hosts, bit for bit: the capture through a
-    `RankCapture` on (4, 1), (2, 2) and (3, 1) (every leaf replicated),
-    and train(rules=) with a failure at step 2 (FSDP off and on, and on
+    `RankCapture` on (4, 1), (2, 2) (dense, and arctic whole over model)
+    and (3, 1) (every leaf replicated), and train(rules=) with a failure at step 2 (FSDP off and on, and on
     three ranks), which resumes at step 1."""
     ranks = request.getfixturevalue("three" if "3x1" in tag else "ranks")
     trainer, shadow = ranks[0][f"{tag}/trainer"], ranks[0][f"{tag}/shadow"]
@@ -234,33 +236,48 @@ def test_trainer_state_is_the_shadows_bitwise(request, tag):
                    for out in ranks)
 
 
-@pytest.mark.parametrize("mesh", ["4x1", "2x2", "3x1"])
+@pytest.mark.parametrize("mesh", ["4x1", "2x2", "moe2x2", "3x1"])
 def test_capture_covers_every_element_exactly_once(request, mesh):
     """Each rank's marks of what it packed at each step: over all ranks
     every element of every leaf is covered exactly once. On (2, 2) the
-    model-index-1 ranks (1 and 3) contribute nothing; on (3, 1), where
-    every leaf is replicated, dp rank 0 sends each leaf whole and the
-    others nothing."""
+    tensor-parallel dense model's leaves are cut over model too, so every
+    rank sends a share, the model-index-1 ranks (1 and 3) only slices cut
+    over model; arctic on (2, 2) is whole over model, so ranks 1 and 3
+    send nothing and rank 0 receives rank 2's dp slices alone, with no
+    padding; on (3, 1), where every leaf is replicated, dp rank 0 sends
+    each leaf whole and the others nothing."""
     ranks = request.getfixturevalue("three" if mesh == "3x1" else "ranks")
-    shapes = {k: tuple(v.shape) for k, v in
-              ranks[0]["dense/full"]["params"].items()}
+    shapes = {k: tuple(v.shape) for k, v in ranks[0][
+        "moe/full" if mesh == "moe2x2" else "dense/full"]["params"].items()}
+
+    def numel(k, cuts):
+        return math.prod(shapes[k]) // math.prod(
+            shapes[k][d] // (hi - lo) for d, lo, hi in cuts)
     for t in range(2):
         counts = {k: np.zeros(s, np.int64) for k, s in shapes.items()}
         for out in ranks:
-            for k, d, lo, hi in out[f"capture/{mesh}/marks/{t}"]:
-                if d is None:
-                    counts[k] += 1
-                else:
-                    idx = [slice(None)] * len(shapes[k])
+            for k, cuts in out[f"capture/{mesh}/marks/{t}"]:
+                idx = [slice(None)] * len(shapes[k])
+                for d, lo, hi in cuts:
                     idx[d] = slice(lo, hi)
-                    counts[k][tuple(idx)] += 1
+                counts[k][tuple(idx)] += 1
         for k, c in counts.items():
             assert (c == 1).all(), (mesh, t, k, np.unique(c))
         if mesh == "2x2":
-            assert ranks[1][f"capture/{mesh}/marks/{t}"] == []
-            assert ranks[3][f"capture/{mesh}/marks/{t}"] == []
+            for r in (1, 3):
+                marks = ranks[r][f"capture/{mesh}/marks/{t}"]
+                assert marks and all(
+                    any(lo > 0 for _, lo, _ in cuts) for _, cuts in marks)
+        if mesh == "moe2x2":
+            for r in (1, 3):
+                assert ranks[r][f"capture/{mesh}/marks/{t}"] == []
+            sent = ranks[2][f"capture/{mesh}/marks/{t}"]
+            assert sent and all(len(cuts) == 1 for _, cuts in sent)
+            assert ranks[0][f"capture/{mesh}/received/{t}"] == sum(
+                numel(k, cuts) for k, cuts in sent)
         if mesh == "3x1":
-            assert all(d is None for _, d, _, _ in
+            assert ranks[0][f"capture/{mesh}/received/{t}"] == 0
+            assert all(cuts == () for _, cuts in
                        ranks[0][f"capture/{mesh}/marks/{t}"])
             assert ranks[1][f"capture/{mesh}/marks/{t}"] == []
             assert ranks[2][f"capture/{mesh}/marks/{t}"] == []
@@ -331,9 +348,10 @@ def test_moe_groups_match_the_reference_at_g4(ref, ranks):
 def test_local_is_the_addressable_shard(ref, ranks, mesh):
     """``sharding(...).local(x)`` on rank r against the reference's
     ``addressable_shards`` on device r, FSDP off and on: the same spec,
-    and the same slice, (pod, data) split row-major pod first. A dim on
-    ``model`` is held whole by the port (no tensor-parallel layers), so
-    the reference's shard is the model block of the port's slice."""
+    and the same slice, (pod, data) split row-major pod first, a dim on
+    ``model`` cut as the reference cuts it. (Where a dim on ``model`` is
+    held whole, the reference's shard is the model block of the port's
+    slice.)"""
     names = {"4x1": ("data", "model"), "2x2": ("data", "model"),
              "2x2x1": ("pod", "data", "model")}[mesh]
     for fsdp in (0, 1):

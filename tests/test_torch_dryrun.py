@@ -56,8 +56,8 @@ ARCHS = ("tinyllama-1.1b", "granite-34b", "arctic-480b", "whisper-medium",
 SHAPES = {"train": (32, 8), "prefill": (32, 8), "decode": (32, 8)}
 # Two differences the test names: integer inputs are int64 in the port
 # (its index type) where the reference's are int32; and a dim the
-# reference cuts over "model" stays whole in the port, which has no
-# tensor-parallel layers (ROADMAP item 11d).
+# reference cuts over "model" stays whole in the port where it computes
+# the layer whole (serving, and the families that are not tensor-parallel).
 INT_DTYPES = {"int32": "int64"}
 
 
@@ -169,6 +169,7 @@ with fake_world(8):
         out[arch + "/global"] = {k: list(s.shape) for k, s in
                                  registry.param_specs(cfg).items()}
         out[arch + "/step"] = st.step
+        out[arch + "/tp"] = registry.tensor_parallel(cfg)
 
 with fake_world(4):
     mesh = Mesh.over_ranks((4, 1), ("data", "model"), device="cpu")
@@ -226,9 +227,14 @@ def test_production_mesh_names_the_ranks_it_needs(port):
 def test_stand_ins_match_the_references(ref, port, arch):
     """Leaf for leaf: the reference's global shape (from the port's specs
     where the stand-in is local) and dtype, and a local shape equal to the
-    reference's per-device shard shape except on model-mapped dims, which
-    the port holds whole."""
+    reference's per-device shard shape, except on model-mapped dims where
+    the port computes the layer whole (every family's cache and inputs,
+    and the state of a family that is not tensor-parallel), which it
+    holds whole."""
     want, got = ref[arch], port[arch]
+    tp = port[arch + "/tp"]
+    assert tp == (arch in ("tinyllama-1.1b", "granite-34b",
+                           "llava-next-mistral-7b", "vit-h-14"))
     assert port["coords"] == {"data": 0, "model": 0}
     assert set(got) == set(want) - {"fsdp"}
     assert port[arch + "/step"] == 0
@@ -242,7 +248,8 @@ def test_stand_ins_match_the_references(ref, port, arch):
             lshape, ldtype, device = got[group][k]
             assert device == "meta", (group, k)
             assert ldtype == INT_DTYPES.get(dtype, dtype), (group, k)
-            assert lshape == [g if m else s for g, s, m
+            cut = tp and group in ("params", "mu", "nu")
+            assert lshape == [g if m and not cut else s for g, s, m
                               in zip(shape, shard, model)], (group, k)
             if group in ("params", "mu", "nu"):
                 assert port[arch + "/global"][k] == shape, (group, k)
@@ -257,7 +264,8 @@ def test_stand_ins_match_the_references(ref, port, arch):
 def test_stand_ins_cut_what_the_reference_cuts(ref):
     """The comparison above bites: on the (4, 2) mesh the reference cuts
     the batch, FSDP's wemb and ZeRO-1's moments over data, and some dims
-    over model, which the port keeps whole."""
+    over model (which the port cuts too for a tensor-parallel family's
+    state, and keeps whole elsewhere)."""
     dense, granite = ref["tinyllama-1.1b"], ref["granite-34b"]
     assert granite["fsdp"] and not dense["fsdp"]
     assert dense["inputs/train"]["tokens"][2] == [2, 32]
@@ -382,13 +390,16 @@ def _reference_keys():
 def test_dryrun_cli_records_every_cell(cli):
     recs = {(r["arch"], r["shape"], r["mesh"]): r for r in cli["all"]}
     assert len(cli["all"]) == len(recs) == 8       # 4 shapes x 2 meshes
-    want = _reference_keys() - {"lower_s", "compile_s"} | {"trace_s"}
+    want = _reference_keys() - {"lower_s", "compile_s"} | {"trace_s",
+                                                            "model"}
     for mesh, chips in (("single", 256), ("multi", 512)):
         for shape in ("train_4k", "prefill_32k", "decode_32k"):
             r = recs[("tinyllama-1.1b", shape, mesh)]
             assert r["status"] == "ok", r
             assert set(r) == want
             assert r["chips"] == chips
+            assert r["model"] == ("tp" if shape == "train_4k"
+                                  else "replicated")
             assert r["hlo_flops_total"] > 0 and r["memory"]["temp_bytes"] > 0
             assert set(r["memory"]) == {"argument_bytes", "output_bytes",
                                         "temp_bytes", "alias_bytes"}

@@ -178,29 +178,38 @@ def test_smoke_mesh_and_shard():
     assert dp_size(mesh) == 1 and rules.axis_size("batch") == 1
     x = torch.arange(6.0).reshape(2, 3)
     assert rules.shard(x, "batch", "emb") is x
-    # on a 4 x 2 mesh each rank's local() is its dp slice (the model dim
-    # whole), and gather() over the data ranks rebuilds the tensor
+    # on a 4 x 2 mesh each rank's local() is its dp slice and its model
+    # slice (with model=False its dp slice alone, the model dim whole),
+    # and gather() over the ranks that split it rebuilds the tensor
     y = torch.arange(8 * 8 * 3, dtype=torch.float32).reshape(8, 8, 3)
     ranks = [_FakeRank({"data": 4, "model": 2}, r) for r in range(8)]
-    for fsdp, logical, spec, dim in (
-            (False, ("batch", "heads", None), P("data", "model"), 0),
-            (True, ("heads", "wemb"), P("model", "data"), 1),
-            (False, ("heads", "wemb"), P("model"), None)):
-        shs = [ShardingRules(m, fsdp=fsdp).sharding(*logical, dims=y.shape)
-               for m in ranks]
-        for m, sh in zip(ranks, shs):
-            assert sh.spec == spec and sh.dim == dim
-            want = y if dim is None else \
-                y.narrow(dim, m.coords["data"] * y.shape[dim] // 4,
-                         y.shape[dim] // 4)
-            got = sh.local(y)
-            assert torch.equal(got, want)
-            assert torch.equal(ShardingRules(m, fsdp=fsdp).shard(
-                y, *logical), want)
-        for m in ranks:
-            m.peers = {p.rank: shs[p.rank].local(y) for p in ranks}
-        for m, sh in zip(ranks, shs):
-            assert torch.equal(sh.gather(sh.local(y)), y)
+
+    def cut(t, d, n, i):
+        return t if d is None else t.narrow(d, i * t.shape[d] // n,
+                                            t.shape[d] // n)
+    for fsdp, logical, spec, dim, mdim in (
+            (False, ("batch", "heads", None), P("data", "model"), 0, 1),
+            (True, ("heads", "wemb"), P("model", "data"), 1, 0),
+            (False, ("heads", "wemb"), P("model"), None, 0)):
+        for model in (True, False):
+            shs = [ShardingRules(m, fsdp=fsdp).sharding(
+                *logical, dims=y.shape, model=model) for m in ranks]
+            for m, sh in zip(ranks, shs):
+                assert sh.spec == spec and sh.dim == dim
+                assert sh.model_dim == (mdim if model else None)
+                dp_part = cut(y, dim, 4, m.coords["data"])
+                want = (cut(dp_part, mdim, 2, m.coords["model"]) if model
+                        else dp_part)
+                got = sh.local(y)
+                assert torch.equal(got, want)
+                if model:
+                    assert torch.equal(ShardingRules(m, fsdp=fsdp).shard(
+                        y, *logical), want)
+                assert sh.local_shape(y.shape) == tuple(want.shape)
+            for m in ranks:
+                m.peers = {p.rank: shs[p.rank].local(y) for p in ranks}
+            for m, sh in zip(ranks, shs):
+                assert torch.equal(sh.gather(sh.local(y)), y)
     # a mesh of more than one rank needs a process-group mesh behind it
     with pytest.raises(ValueError, match="DeviceMesh"):
         Mesh((2, 1), ("data", "model"), device="cpu")

@@ -4,6 +4,7 @@ PyTorch/CUDA port.
     python3 tools/profile_port.py                    # the main path
     python3 tools/profile_port.py --family whisper vit   # phase 8's runs
     python3 tools/profile_port.py --serve dense zamba2   # phase 9's runs
+    python3 tools/profile_port.py --tp                # phase 4c's steps
 
 Runs the main path of ``chip_smoke.py`` (tinyllama-1.1b, all 22 layers, with
 its ``MAIN_RUN``: global batch 8 x seq 2048 through an in-process channel
@@ -19,7 +20,12 @@ params cast by ``serving_params``, bf16 compute) prefills once unprofiled,
 then records one prefill and, after WARMUP decode steps, DECODE_STEPS
 greedy decode steps, with the same summary for each and the kernels
 launched per step (a decode step whose wall exceeds its busy time by far
-is paced by the host). Needs one GPU.
+is paced by the host). With ``--tp`` the two steps of phase 4c's
+yardsticks at phase 4b's cut (tinyllama-1.1b, 2 layers, 8 x 2048, 4
+microbatches, bf16, no checkpointer): the one-rank step, then rank 0's
+local tensor-parallel step of ``TP_YARD_MESH`` in a fake world (its
+collectives move nothing), each WARMUP steps then STEPS profiled. Needs
+one GPU.
 """
 from __future__ import annotations
 
@@ -184,6 +190,51 @@ def profile_serve(label: str) -> dict:
     return out
 
 
+def profile_step(label: str, rules) -> dict:
+    """Profile the train step of phase 4c's yardstick under ``rules``
+    (None: one rank): steps WARMUP+1..WARMUP+STEPS on one batch."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.synthetic import SyntheticStream, device_batch
+    from repro_torch.optim.functional import OptimizerConfig
+    from repro_torch.train.step import build_train_step, make_train_state
+    cut = dataclasses.replace(configs.get("tinyllama-1.1b"),
+                              num_layers=chip_smoke.RANKS_LAYERS)
+    run = chip_smoke.MAIN_RUN
+    state = make_train_state(cut, 0, "cuda", rules)
+    batch = device_batch(SyntheticStream(cut, run["batch"],
+                                         run["seq"]).batch_at(0), "cuda",
+                         rules, cut.microbatches)
+    step = build_train_step(cut, OptimizerConfig(), lambda s: 1e-3, rules)
+    for _ in range(WARMUP):
+        step(state, batch)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof.stop()
+    del state, batch, step
+    return {"run": label, "card": card(), "layers": cut.num_layers,
+            "steps": STEPS, **summarize(prof, wall, STEPS)}
+
+
+def profile_tp() -> None:
+    from repro_torch.dist.sharding import Mesh, ShardingRules
+    from repro_torch.launch.mesh import fake_world
+    print(json.dumps(profile_step("one rank", None)), flush=True)
+    chip_smoke._free()
+    shape = chip_smoke.TP_YARD_MESH
+    with fake_world(shape[0] * shape[1]):
+        rules = ShardingRules(Mesh.over_ranks(shape, ("data", "model")))
+        print(json.dumps(profile_step(f"tp rank 0 of {shape}", rules)),
+              flush=True)
+
+
 def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: needs a GPU")
@@ -192,6 +243,9 @@ def main(argv=None):
     if not argv:
         print(json.dumps(profile_run("main", configs.get("tinyllama-1.1b"),
                                      chip_smoke.MAIN_RUN)))
+        return
+    if argv == ["--tp"]:
+        profile_tp()
         return
     if argv[0] == "--serve":
         cells = chip_smoke.serve_cells()
