@@ -17,7 +17,9 @@ Phases, in order; any failed check raises and the script exits nonzero:
              and with a q_offset in bf16 and f32: llama3.2-3b's
              sequence-sharded rows (256 of 4096 at 3840, 24:8, 128), the
              tensor-parallel CPU test's reduced shape and rows that end
-             before the last key), on test shapes and again on every
+             before the last key), at each phase-4c tensor-parallel
+             yardstick's local attention shape (arctic's 14:2 heads at
+             d 128 a rank of (1, 4)), on test shapes and again on every
              leaf and bucket of the main path, and time kernel, plain
              version, bound and one library call (the library call is a
              yardstick only; the port never makes it).
@@ -81,7 +83,13 @@ Phases, in order; any failed check raises and the script exits nonzero:
              of its stand-in, the predicted peak within 25% of the
              card's, the roofline's compute and memory terms no longer
              than the measured step (the fake collectives move nothing,
-             so values are not checked).
+             so values are not checked), the wgmma flash kernel 2 x
+             layers x microbatches times a step and the analysis counting
+             the same flash and AdamW calls. It runs twice: tinyllama at
+             4b's cut, and arctic-480b at phase 8's cut (1 layer, 8
+             experts, 2 a rank over ``model``, batch 4 x 2048 in 2
+             microbatches), whose expert-parallel step routes every token
+             on every model rank and runs its own two experts.
 5. checkpointers — the training CLI (``repro_torch.launch.train.run``)
              at full width and depth, ``--freq 1``, 5 steps, once per
              checkpointer: none; checkmate (2 async nodes, lag bound 2);
@@ -195,7 +203,7 @@ Phases, in order; any failed check raises and the script exits nonzero:
              shapes), multicast_overhead (Fig 10; drops 0),
              optimizer_scaling (Fig 8: gpt3-6.7b, 2 layers, 1/2/4/8 shadow
              nodes), stalls (Fig 2: gpt3-xl, 2 layers, 8 x 2048, six
-             systems: 4 steps, the four copy-persist ones 2), throughput (Fig 6: vit-h-14, gpt2-1.5b and
+             systems: 4 steps, the four copy-persist ones 1), throughput (Fig 6: vit-h-14, gpt2-1.5b and
              gpt3-xl at 2 layers, llama2-7b at 1; no checkpoint and
              Checkmate 8 steps at each; async and gemini 3 steps and
              CheckFreq 6 at vit-h-14),
@@ -222,7 +230,9 @@ Output: a ``main_path`` JSON line, a ``ranks`` JSON line, a ``dryrun``
 JSON line, ``flash_d128``, ``flash_f32_d128``,
 ``flash_bf16_d80``, ``flash_prefill`` (with phase 9's dense prefill
 launches), ``flash_q_offset`` (llama3.2-3b's last sequence-sharded rows,
-beside SDPA with the bottom-right mask) and ``pack_host`` timing lines, a ``kernels`` JSON line,
+beside SDPA with the bottom-right mask), ``flash_ep_rank`` (an
+expert-parallel arctic rank's heads, with one step of phase 4c's
+launches) and ``pack_host`` timing lines, a ``kernels`` JSON line,
 a ``checkpointers`` JSON line, a ``durability`` JSON line, a ``harness``
 JSON line, a ``families`` JSON line, a ``serving`` JSON line, a
 ``benchmarks`` JSON line (each twin's CSV rows, seconds, launches and
@@ -485,6 +495,9 @@ def flash_cases() -> tuple[list, int]:
               (2, 2048, 32, 4, 64, torch.float32, True)]    # phase 3's
     cases = [(b, s, s, h, kv, d, dt, causal)
              for b, s, h, kv, d, dt, causal in cases]
+    cases += [c for cut, batch, seq in tp_yard_cells().values()
+              for c in attention_shapes(tp_local(cut), seq,
+                                        batch // cut.microbatches)]
     family = family_flash_cases()
     return cases + family, len(family)
 
@@ -701,6 +714,13 @@ def time_kernels(dev, cfg, errs: dict) -> tuple[list[dict], dict, dict]:
     extra["flash_q_offset"] = flash_row(dev, gen, (b, sq, h, kv, d),
                                         torch.bfloat16, errs, skv=skv,
                                         q_offset=off)
+    # an expert-parallel rank's attention: arctic's heads a rank of
+    # phase 4c's (1, 4) mesh, one microbatch
+    cut, bsz, sq = tp_yard_cells()["arctic"]
+    loc = tp_local(cut)
+    extra["flash_ep_rank"] = flash_row(
+        dev, gen, (bsz // cut.microbatches, sq, loc.num_heads,
+                   loc.num_kv_heads, loc.head_dim), torch.bfloat16, errs)
     for r in rows + list(extra.values()):
         r["route"] = "cuda"
         by = ", ".join(filter(None, (r["bound_by"], r.get("bound_unit"))))
@@ -1211,11 +1231,10 @@ def dryrun_yardstick(cfg) -> dict:
             "roofline_share": rf.step_time_s / step_s}
 
 
-# The tensor-parallel yardstick: rank 0 of a (1, 4) ("data", "model") mesh
-# in a fake world of 4 ranks, at phase 4b's cut (tinyllama's 32 heads and 4
-# kv heads divide 4, so every leaf the spec maps to model is cut on whole
-# heads). Its collectives move nothing on the card, so its values are not
-# checked: only the local shapes, the peak and the time.
+# The tensor-parallel yardsticks: rank 0 of a (1, 4) ("data", "model")
+# mesh in a fake world of 4 ranks. Their collectives move nothing on the
+# card, so their values are not checked: only the local shapes, the peak,
+# the time and the launches.
 TP_YARD_MESH = (1, 4)
 # timed steps after two warm-up ones (the step is host-paced: a quarter of
 # the one-rank step's device work, the same number of launches); the
@@ -1223,15 +1242,41 @@ TP_YARD_MESH = (1, 4)
 TP_YARD_STEPS = 3
 
 
-def tp_yardstick(cfg) -> dict:
+def tp_yard_cells() -> dict:
+    """label: (config cut, global batch, token seq) of each yardstick:
+    tinyllama at phase 4b's cut (its 32 heads and 4 kv heads divide 4, so
+    every leaf the spec maps to model is cut on whole heads), and arctic
+    at phase 8's (56 heads and 8 kv heads: 14 and 2 a rank; 8 experts: 2
+    a rank)."""
+    from repro_torch import configs
+    return {"tinyllama": (dataclasses.replace(
+                configs.get(DRYRUN_ARCH), num_layers=RANKS_LAYERS),
+                MAIN_RUN["batch"], MAIN_RUN["seq"]),
+            "arctic": (family_cfg("arctic"), FAMILY_BATCH,
+                       FAMILY_CELLS["arctic"][2])}
+
+
+def tp_local(cut):
+    """``cut`` with the heads rank 0 of TP_YARD_MESH attends over (both
+    yardsticks cut q and kv heads on whole heads)."""
+    m = TP_YARD_MESH[1]
+    check(cut.num_heads % m == 0 and cut.num_kv_heads % m == 0,
+          f"dryrun: {cut.name}'s heads do not split over {m} model ranks")
+    return dataclasses.replace(cut, num_heads=cut.num_heads // m,
+                               num_kv_heads=cut.num_kv_heads // m)
+
+
+def tp_yardstick(label: str) -> dict:
     """`analyze_step` for rank 0 of TP_YARD_MESH beside that rank's local
-    step on the card (the fake backend takes CUDA tensors too; the median
-    of TP_YARD_STEPS steps, the peak over them): every
-    local leaf the shape of its stand-in, the predicted arguments +
-    temporaries within DRYRUN_MEMORY_RTOL of the step's peak allocation,
-    and the roofline's compute and memory terms no longer than the
-    measured step (its collective term is reported beside them: the fake
-    collectives cost the card nothing)."""
+    step on the card for the yardstick ``label`` of `tp_yard_cells` (the
+    fake backend takes CUDA tensors too; the median of TP_YARD_STEPS
+    steps, the peak over them): every local leaf the shape of its
+    stand-in, the predicted arguments + temporaries within
+    DRYRUN_MEMORY_RTOL of the step's peak allocation, the roofline's
+    compute and memory terms no longer than the measured step (its
+    collective term is reported beside them: the fake collectives cost
+    the card nothing), and the wgmma flash kernel and AdamW launched as
+    often as the analysis counts them."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.synthetic import SyntheticStream, device_batch
     from repro_torch.dist.sharding import Mesh, ShardingRules
@@ -1243,14 +1288,15 @@ def tp_yardstick(cfg) -> dict:
     from repro_torch.optim.functional import OptimizerConfig
     from repro_torch.train.step import (abstract_train_state,
                                         build_train_step, make_train_state)
-    cut = dataclasses.replace(cfg, num_layers=RANKS_LAYERS)
-    shape = ShapeConfig("phase4b", MAIN_RUN["seq"], MAIN_RUN["batch"],
-                        "train")
+    t_start = time.perf_counter()
+    cut, batch_size, seq = tp_yard_cells()[label]
+    shape = ShapeConfig(f"tp-{label}", seq, batch_size, "train")
     opt = OptimizerConfig()
     names = ("data", "model")
     with fake_world(math.prod(TP_YARD_MESH)):
         rules = ShardingRules(Mesh.over_ranks(TP_YARD_MESH, names,
-                                              device="cpu"))
+                                              device="cpu"),
+                              fsdp=cut.fsdp)
         stand_in = abstract_train_state(cut, rules)
         a = analyze_step(build_train_step(cut, opt, lambda s: 1e-3, rules),
                          stand_in, registry.input_specs(cut, shape, rules))
@@ -1265,17 +1311,19 @@ def tp_yardstick(cfg) -> dict:
             per_collective=a["per_collective"])
         predicted = a["memory"]["argument_bytes"] + a["memory"]["temp_bytes"]
 
-        card = ShardingRules(Mesh.over_ranks(TP_YARD_MESH, names))
+        card = ShardingRules(Mesh.over_ranks(TP_YARD_MESH, names),
+                             fsdp=cut.fsdp)
         _free()
         base = torch.cuda.memory_allocated()
         state = make_train_state(cut, 0, "cuda", card)
         for tree in ("params", "mu", "nu"):
             for k, t in getattr(state, tree).items():
                 check(t.shape == getattr(stand_in, tree)[k].shape,
-                      f"dryrun: tp {tree}[{k}] {tuple(t.shape)} on the card, "
-                      f"{tuple(getattr(stand_in, tree)[k].shape)} traced")
-        batch = device_batch(SyntheticStream(cut, MAIN_RUN["batch"],
-                                             MAIN_RUN["seq"]).batch_at(0),
+                      f"dryrun: {label} tp {tree}[{k}] {tuple(t.shape)} on "
+                      f"the card, {tuple(getattr(stand_in, tree)[k].shape)} "
+                      f"traced")
+        batch = device_batch(SyntheticStream(cut, batch_size,
+                                             seq).batch_at(0),
                              "cuda", card, cut.microbatches)
         step = build_train_step(cut, opt, lambda s: 1e-3, card)
         for _ in range(2):                # warm-up: the host-paced step
@@ -1303,17 +1351,18 @@ def tp_yardstick(cfg) -> dict:
     check(launches["flash_attention_wgmma"] == flash
           and a["kernels"]["flash_attention"]["calls"] == flash
           and launches["fused_adamw"] == a["kernels"]["fused_adamw"]["calls"],
-          f"dryrun: tp step launched {launches}, the analysis recorded "
-          f"{a['kernels']} (flash {flash})")
+          f"dryrun: {label} tp step launched {launches}, the analysis "
+          f"recorded {a['kernels']} (flash {flash})")
     check(abs(err) <= DRYRUN_MEMORY_RTOL,
-          f"dryrun: tp predicted {predicted} bytes vs the card's peak "
-          f"{peak} ({err:+.1%}; tolerance {DRYRUN_MEMORY_RTOL:.0%})")
+          f"dryrun: {label} tp predicted {predicted} bytes vs the card's "
+          f"peak {peak} ({err:+.1%}; tolerance {DRYRUN_MEMORY_RTOL:.0%})")
     check(local_s <= step_s,
-          f"dryrun: tp roofline {local_s * 1e3:.2f} ms (compute and "
+          f"dryrun: {label} tp roofline {local_s * 1e3:.2f} ms (compute and "
           f"memory) beats the measured {step_s * 1e3:.2f} ms")
     return {"model": cut.name, "layers": cut.num_layers,
-            "mesh": list(TP_YARD_MESH), "batch": MAIN_RUN["batch"],
-            "seq": MAIN_RUN["seq"], "microbatches": cut.microbatches,
+            "experts": cut.num_experts, "mesh": list(TP_YARD_MESH),
+            "batch": batch_size, "seq": seq,
+            "microbatches": cut.microbatches,
             "predicted_bytes": predicted, "memory": a["memory"],
             "peak_bytes": peak, "memory_err": err,
             "flops": a["flops_per_device"], "bytes": a["bytes_per_device"],
@@ -1324,7 +1373,22 @@ def tp_yardstick(cfg) -> dict:
                                   "bound", "step_time_s")},
             "step_ms": step_s * 1e3,
             "step_ms_each": [t * 1e3 for t in times], "launches": launches,
-            "local_roofline_share": local_s / step_s}
+            "local_roofline_share": local_s / step_s,
+            "seconds": time.perf_counter() - t_start}
+
+
+def _print_tp_yardstick(label: str, tp: dict, extra: str = "") -> None:
+    print(f"dryrun: tensor-parallel yardstick {label} ({tp['model']}), "
+          f"rank 0 of {tp['mesh']}, {tp['layers']} layers, {tp['batch']} x "
+          f"{tp['seq']}: predicted {tp['predicted_bytes'] / 1e9:.3f} GB, "
+          f"card peak {tp['peak_bytes'] / 1e9:.3f} GB "
+          f"({tp['memory_err']:+.1%}); roofline compute "
+          f"{tp['roofline']['compute_s'] * 1e3:.2f} ms, memory "
+          f"{tp['roofline']['memory_s'] * 1e3:.2f} ms, collective "
+          f"{tp['roofline']['collective_s'] * 1e3:.2f} ms (not run: the "
+          f"fake collectives move nothing); measured local step "
+          f"{tp['step_ms']:.2f} ms{extra}; launches {tp['launches']}; "
+          f"{tp['seconds']:.1f} s in all; {card_name_power()}", flush=True)
 
 
 def phase_dryrun(cfg) -> dict:
@@ -1341,7 +1405,8 @@ def phase_dryrun(cfg) -> dict:
             out = os.path.join(tmp, f"{mesh}.json")
             procs[out] = _start_dryrun(out, flags)
         yard = dryrun_yardstick(cfg)
-        tp = tp_yardstick(cfg)
+        tp = tp_yardstick("tinyllama")
+        ep = tp_yardstick("arctic")
         for out, proc in procs.items():
             log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
             check(proc.returncode == 0,
@@ -1395,20 +1460,14 @@ def phase_dryrun(cfg) -> dict:
           f"({yard['roofline']['bound']}-bound), measured "
           f"{yard['step_ms']:.2f} ms, share {yard['roofline_share']:.3f}; "
           f"{card_name_power()}", flush=True)
-    print(f"dryrun: tensor-parallel yardstick, rank 0 of {tp['mesh']}, "
-          f"{tp['layers']} layers, {tp['batch']} x {tp['seq']}: predicted "
-          f"{tp['predicted_bytes'] / 1e9:.3f} GB, card peak "
-          f"{tp['peak_bytes'] / 1e9:.3f} GB ({tp['memory_err']:+.1%}); "
-          f"roofline compute {tp['roofline']['compute_s'] * 1e3:.2f} ms, "
-          f"memory {tp['roofline']['memory_s'] * 1e3:.2f} ms, collective "
-          f"{tp['roofline']['collective_s'] * 1e3:.2f} ms (not run: the "
-          f"fake collectives move nothing); measured local step "
-          f"{tp['step_ms']:.2f} ms against the one-rank "
-          f"{yard['step_ms']:.2f} ms ({tp['step_ms'] / yard['step_ms']:.3f}"
-          f"); {card_name_power()}", flush=True)
+    _print_tp_yardstick("tinyllama", tp,
+                        f" against the one-rank {yard['step_ms']:.2f} ms "
+                        f"({tp['step_ms'] / yard['step_ms']:.3f})")
+    _print_tp_yardstick("arctic", ep)
     return {"arch": DRYRUN_ARCH, "cells": cells,
             "multi_over_single_flops": half, "yardstick": yard,
-            "tp_yardstick": tp, "card": card_name_power()}
+            "tp_yardstick": tp, "ep_yardstick": ep,
+            "card": card_name_power()}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -3325,6 +3384,10 @@ def main():
     # are that run's prefill's
     flash_extra["flash_prefill"]["launches"] = \
         serving["runs"][0]["prefill_launches"]["flash_attention_wgmma"]
+    # the expert-parallel rank's row: one step of phase 4c's arctic
+    # yardstick
+    flash_extra["flash_ep_rank"]["launches"] = \
+        dryrun["ep_yardstick"]["launches"]["flash_attention_wgmma"]
     print(f"timing: seconds by phase {secs}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

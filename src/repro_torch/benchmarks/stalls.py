@@ -6,9 +6,10 @@ async still stalls (same volume); sharding reduces it; Checkmate ~
 no-ckpt. On the card (the default) the model is gpt3-xl at full width
 (d_model 2048, 16 heads, d_ff 8192, vocab 50257), cut to ``CARD['layers']``
 of its 24 layers, at batch 8 x seq 2048 for ``CARD['steps']`` steps (the
-copy-persist systems ``CARD['copy_persist_steps']``: each of their
+copy-persist systems ``CARD['copy_persist_steps']``, one: each of their
 checkpoints copies the state through pageable host memory, seconds a
-step); on the CPU it is the JAX module's ``bench_config`` model and sizes.
+step, and one checkpoint gives the stall their row reports); on the CPU
+it is the JAX module's ``bench_config`` model and sizes.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from repro_torch.train.loop import train
 from repro_torch.train.step import make_train_state
 
 STEPS, BATCH, SEQ = 6, 8, 128
-CARD = dict(layers=2, steps=4, copy_persist_steps=2, batch=8, seq=2048)
+CARD = dict(layers=2, steps=4, copy_persist_steps=1, batch=8, seq=2048)
 SYSTEMS = ("no_checkpoint", "checkmate", "sync", "async", "torch_dcp",
            "gemini")
 COPY_PERSIST = ("sync", "async", "torch_dcp", "gemini")

@@ -1,5 +1,6 @@
 """Tensor parallelism over the ``model`` mesh axis: the explicit form of
-what the reference's GSPMD inserts for the dense and vlm families' specs.
+what the reference's GSPMD inserts for the dense, moe and vlm families'
+specs (moe's experts: `repro_torch.models.moe`).
 
 Each rank of a ``model`` group holds ``1/m`` of every leaf whose spec cuts
 it over ``model`` (`repro_torch.dist.sharding.NamedSharding`) and computes

@@ -24,11 +24,11 @@ nothing is lowered or compiled. Results are appended to ``--out`` after
 every cell, so an interrupted run resumes where it stopped. There is no
 ``--save-hlo``: there is no HLO.
 
-A train cell of a tensor-parallel family (dense, vlm:
+A train cell of a tensor-parallel family (dense, moe, vlm:
 `registry.TENSOR_PARALLEL`) traces the tensor-parallel step: rank 0
-holds its ``1/16`` of every leaf the spec cuts over ``model`` and
-computes the layers' share those leaves carry (``"model": "tp"`` in the
-record). Every other family's train cells, and every serving cell, keep
+holds its ``1/16`` of every leaf the spec cuts over ``model`` (moe: its
+16th of the experts) and computes the layers' share those leaves carry
+(``"model": "tp"`` in the record). Every other family's train cells, and every serving cell, keep
 each layer whole on every rank of a ``model`` group (``"model":
 "replicated"``): there ``flops_per_device``, ``bytes_per_device_hbm``
 and ``useful_flops_ratio`` are the port's own, up to 16 times the

@@ -15,7 +15,8 @@ makes is seen as it is issued. It returns the reference's keys:
   plus the FLOPs each kernel wrapper records for its kernel on meta
   tensors (`repro_torch.kernels.build.record_work`: flash's two
   products). Elementwise work is not counted, as `FlopCounterMode`
-  counts none.
+  counts none. ``flops_by_op`` splits its part by aten op (``"mm"``,
+  ``"bmm"``, ...).
 - ``bytes_per_device``: the bytes every aten op reads and writes (each
   tensor input and output once; views and ``empty`` move none), plus the
   bytes each kernel records. It is an upper bound for an unfused step:
@@ -176,6 +177,8 @@ def analyze_step(fn, *args) -> dict:
     return {
         "flops_per_device": float(flops.get_total_flops())
         + sum(k["flops"] for k in kernels.values()),
+        "flops_by_op": {op.__name__.split(".")[0]: int(n) for op, n in
+                        flops.get_flop_counts()["Global"].items()},
         "bytes_per_device": counter.bytes
         + sum(k["bytes"] for k in kernels.values()),
         "collective_bytes_per_device": counter.collective_bytes,

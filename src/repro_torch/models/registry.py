@@ -12,8 +12,9 @@ port of the reference's ``ShapeDtypeStruct`` ones: tensors on the
 ``meta`` device (a shape and a dtype, no data) at the shape this rank
 holds under ``rules`` (``rules.sharding(...).local_shape``: dims mapped to
 dp axes cut; ``model``-mapped dims cut for the training leaves of a
-tensor-parallel family (`TENSOR_PARALLEL`), whole for every other family
-and for serving, as the port's layers compute them). Two differences from the reference's: integer inputs are int64,
+tensor-parallel family (`TENSOR_PARALLEL`: dense, moe, vlm), whole for the
+ssm, hybrid, audio and vit families and for serving, as the port's layers
+compute them). Two differences from the reference's: integer inputs are int64,
 the port's index type (the reference's are int32), and a cache's
 ``length`` is the host int the port's decode reads, set to the last
 position so that one decode step fits (the reference's is an int32
@@ -42,9 +43,10 @@ _FAMILIES = {
 
 
 # the families whose training layers run tensor-parallel over ``model``
-# (`repro_torch.dist.tensor_parallel`); every other family, and serving,
-# computes each layer whole on every rank of a model group
-TENSOR_PARALLEL = frozenset({"dense", "vlm"})
+# (`repro_torch.dist.tensor_parallel`; moe's experts cut over it too); the
+# ssm, hybrid, audio and vit families, and serving, compute each layer
+# whole on every rank of a model group
+TENSOR_PARALLEL = frozenset({"dense", "moe", "vlm"})
 
 
 def tensor_parallel(cfg: ModelConfig) -> bool:
@@ -71,11 +73,11 @@ def init_params(cfg: ModelConfig, seed: int, device) -> dict:
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, rules=None):
-    """The loss of this rank's rows. ``rules`` reach the MoE family (its
-    token groups are the dp ranks') and the tensor-parallel ones (their
-    layers over ``model``); every other family computes each row on its
-    own, the same on any mesh."""
-    if cfg.family == "moe" or tensor_parallel(cfg):
+    """The loss of this rank's rows. ``rules`` reach the tensor-parallel
+    families (their layers over ``model``; moe's token groups are the dp
+    ranks' too); every other family computes each row on its own, the
+    same on any mesh."""
+    if tensor_parallel(cfg):
         return family_module(cfg).loss_fn(params, cfg, batch, rules=rules)
     return family_module(cfg).loss_fn(params, cfg, batch)
 

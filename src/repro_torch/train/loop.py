@@ -149,9 +149,10 @@ class RankCapture:
     rank with a share packs it into one flat (one pack launch) and sends
     it to global rank 0, which receives exactly those flats, each at its
     own size, and rebuilds each global leaf from its cuts. A rank with no
-    share (a model index above 0 where no leaf is cut over ``model``)
-    sends nothing. A leaf cut nowhere is taken from rank 0's own reduced
-    leaf. ``marks`` lists what this rank contributed at the last call, as
+    share (a model index above 0 of a family whose layers are whole over
+    ``model``: ssm, hybrid, audio, vit) sends nothing; under moe's expert
+    parallelism every rank sends its experts' slices. A leaf cut nowhere
+    is taken from rank 0's own reduced leaf. ``marks`` lists what this rank contributed at the last call, as
     (leaf, ((dim, first, end), ...)), the cuts along which its slice was
     taken (empty: the whole leaf); ``received`` is the number of elements
     rank 0 received from the other ranks.

@@ -191,7 +191,7 @@ def dp_train(rank, ref_path, out_dir):
                   "capture/4x1")
     _captured_run(dense, r22, local_state(dense, r22, start), 2, out,
                   "capture/2x2")
-    # a family whose layers are whole over model: only model index 0 sends
+    # arctic, its experts (and attention, residual, vocab) over model
     _captured_run(moe, r22, local_state(moe, r22, initial_state(
         ref, "moe", moe)), 2, out, "capture/moe2x2")
     _looped_run(dense, r41, out, "loop/4x1")

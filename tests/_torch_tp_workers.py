@@ -53,8 +53,8 @@ EPS = 1e-4
 OPT = OptimizerConfig(lr=1e-3, eps=EPS, grad_clip=0.5)
 
 
-def case_cfg(tag: str):
-    arch, over = CASES[tag]
+def case_cfg(tag: str, cases=CASES):
+    arch, over = cases[tag]
     return TC.get(arch).reduced(compute_dtype="float32", microbatches=2,
                                 **over)
 
@@ -64,18 +64,24 @@ def _equal(a: dict, b: dict, what: str):
         assert torch.equal(t, b[k]), (what, k)
 
 
-def tp_train(rank, ref_path, out_dir):
-    ref = np.load(ref_path)
-    out = {}
-    m22 = Mesh.over_ranks((2, 2), ("data", "model"), device="cpu")
-    for tag in CASES:
-        cfg = case_cfg(tag)
-        rules = ShardingRules(m22, fsdp=cfg.fsdp)
+def run_cases(ref, cases: dict, mesh, out: dict):
+    """``STEPS`` steps of every case on ``mesh`` from the reference's
+    initial params, and each leaf's (model, dp) cut counts."""
+    for tag in cases:
+        cfg = case_cfg(tag, cases)
+        rules = ShardingRules(mesh, fsdp=cfg.fsdp)
         start = initial_state(ref, tag, cfg)
         _run_steps(cfg, rules, local_state(cfg, rules, start), STEPS, out,
                    tag, opt=OPT)
         sh = state_sharding(cfg, rules)
         out[f"{tag}/cuts"] = {k: (z.m, z.n) for k, z in sh.params.items()}
+
+
+def tp_train(rank, ref_path, out_dir):
+    ref = np.load(ref_path)
+    out = {}
+    m22 = Mesh.over_ranks((2, 2), ("data", "model"), device="cpu")
+    run_cases(ref, CASES, m22, out)
 
     # inside the port, on the dense case: the capture and the loop
     dense = case_cfg("dense")
@@ -84,26 +90,36 @@ def tp_train(rank, ref_path, out_dir):
     shadow = _captured_run(dense, r22, local_state(dense, r22, start), 2,
                            out, "capture/tp", keep_shadow=True, opt=OPT)
     _looped_run(dense, r22, out, "loop/tp", opt=OPT)
+    resume_on_other_meshes(dense, r22, shadow, out, "capture/tp")
+    if shadow is not None:
+        shadow.shutdown()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
-    # the (2, 2) run's checkpoint at step 2 onto (4, 1) and (1, 4)
+
+def resume_on_other_meshes(cfg, r22, shadow, out: dict, tag: str):
+    """The (2, 2) run's checkpoint at step 2 (``shadow`` on rank 0, the
+    captured run ``tag``) onto (4, 1) and (1, 4): each rank's recovered
+    slices bitwise the trainer's state handed straight over, and one step
+    from each bitwise the same."""
     for name, mp in (("4x1", 1), ("1x4", 4)):
         nr = rules_from_plan(plan_elastic_mesh(
-            4, ElasticMeshBudget(model_parallel=mp)), device="cpu")
+            4, ElasticMeshBudget(model_parallel=mp), fsdp=cfg.fsdp),
+            device="cpu")
         assert nr.mesh.shape == ({"data": 4, "model": 1} if mp == 1
                                  else {"data": 1, "model": 4})
-        state, resume = recover(shadow, new_rules=nr, cfg=dense)
+        state, resume = recover(shadow, new_rules=nr, cfg=cfg)
         assert resume == 2 and state.step == 2
         # the port's own uninterrupted run: the (2, 2) trainer's state at
         # step 2 handed straight to the new mesh (every rank gathers it)
-        full = full_state(dense, r22, _restate(out, rank))
-        direct = local_state(dense, nr, TrainState(
+        full = full_state(cfg, r22, _restate(out, tag))
+        direct = local_state(cfg, nr, TrainState(
             full["params"], full["mu"], full["nu"], 2))
         for tree in ("params", "mu", "nu"):
             _equal(getattr(state, tree), getattr(direct, tree),
                    f"recovered {name} {tree}")
-        step = build_train_step(dense, OPT, lr_fn, nr)
-        batch = device_batch(SyntheticStream(dense, 16, SEQ, seed=0)
-                             .batch_at(2), "cpu", nr, dense.microbatches)
+        step = build_train_step(cfg, OPT, lr_fn, nr)
+        batch = device_batch(SyntheticStream(cfg, 16, SEQ, seed=0)
+                             .batch_at(2), "cpu", nr, cfg.microbatches)
         state, met, _ = step(state, batch)
         direct, met_d, _ = step(direct, dict(batch))
         for tree in ("params", "mu", "nu"):
@@ -113,14 +129,11 @@ def tp_train(rank, ref_path, out_dir):
         out[f"resume/{name}/loss"] = float(met["loss"])
         out[f"resume/{name}/local"] = {k: tuple(t.shape)
                                        for k, t in state.params.items()}
-    if shadow is not None:
-        shadow.shutdown()
-    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def _restate(out: dict, rank: int) -> TrainState:
-    """This rank's local state at the end of the captured run."""
-    loc = out["capture/tp/local"]
+def _restate(out: dict, tag: str) -> TrainState:
+    """This rank's local state at the end of the captured run ``tag``."""
+    loc = out[f"{tag}/local"]
     return TrainState(loc["params"], loc["mu"], loc["nu"], 2)
 
 

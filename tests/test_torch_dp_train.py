@@ -31,7 +31,7 @@ import pytest
 import torch
 
 from _torch_dp_workers import (BATCH, OPT, SEQ, SHARDING_CASES, dense_cfg,
-                               initial_state, lr_fn)
+                               initial_state, lr_fn, moe_cfg)
 from _torch_spawn import spawn
 
 from repro_torch.data.synthetic import SyntheticStream, device_batch
@@ -220,7 +220,8 @@ def test_four_ranks_match_one_rank(ref, ranks):
 def test_trainer_state_is_the_shadows_bitwise(request, tag):
     """Rank 0's gathered trainer state equals the consolidated checkpoint
     of the shadow it hosts, bit for bit: the capture through a
-    `RankCapture` on (4, 1), (2, 2) (dense, and arctic whole over model)
+    `RankCapture` on (4, 1), (2, 2) (dense, and arctic with its experts
+    cut over model)
     and (3, 1) (every leaf replicated), and train(rules=) with a failure at step 2 (FSDP off and on, and on
     three ranks), which resumes at step 1."""
     ranks = request.getfixturevalue("three" if "3x1" in tag else "ranks")
@@ -236,16 +237,49 @@ def test_trainer_state_is_the_shadows_bitwise(request, tag):
                    for out in ranks)
 
 
+def _moe_marks(r: int) -> list:
+    """What rank ``r`` of the (2, 2) mesh (FSDP off, as the captured run)
+    sends of arctic's reduced gradients, from the specs: each leaf cut
+    over data or model, its ZeRO-1 slice and its model slice, where the
+    rank is the first along every dim the leaf holds whole."""
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.models import registry
+    from repro_torch.optim.sharded import zero1_spec
+
+    class Mesh22:
+        shape = {"data": 2, "model": 2}
+        axis_names = ("data", "model")
+    cfg = moe_cfg()
+    rules = ShardingRules(Mesh22())
+    a, b = divmod(r, 2)
+    marks = []
+    for k, ps in registry.param_specs(cfg).items():
+        spec = zero1_spec(ps.shape, rules.spec(*ps.logical, dims=ps.shape),
+                          Mesh22())
+        cuts = [(spec.index(ax), i) for ax, i in (("data", a), ("model", b))
+                if ax in spec]
+        if not cuts or any(i for ax, i in (("data", a), ("model", b))
+                           if ax not in spec):
+            continue
+        marks.append((k, tuple((d, i * ps.shape[d] // 2,
+                                (i + 1) * ps.shape[d] // 2)
+                               for d, i in cuts)))
+    return marks
+
+
 @pytest.mark.parametrize("mesh", ["4x1", "2x2", "moe2x2", "3x1"])
 def test_capture_covers_every_element_exactly_once(request, mesh):
     """Each rank's marks of what it packed at each step: over all ranks
     every element of every leaf is covered exactly once. On (2, 2) the
     tensor-parallel dense model's leaves are cut over model too, so every
     rank sends a share, the model-index-1 ranks (1 and 3) only slices cut
-    over model; arctic on (2, 2) is whole over model, so ranks 1 and 3
-    send nothing and rank 0 receives rank 2's dp slices alone, with no
-    padding; on (3, 1), where every leaf is replicated, dp rank 0 sends
-    each leaf whole and the others nothing."""
+    over model; arctic on (2, 2) has its experts (and its attention,
+    dense residual and vocab) cut over model, so ranks 1, 2 and 3 each
+    send exactly the slices the specs give them (their model half of each
+    leaf cut over model, and their data half where the leaf is cut over
+    data too), and rank 0 receives exactly those, with no padding; on
+    (3, 1), where every leaf is replicated, dp rank 0 sends each leaf
+    whole and the others nothing."""
     ranks = request.getfixturevalue("three" if mesh == "3x1" else "ranks")
     shapes = {k: tuple(v.shape) for k, v in ranks[0][
         "moe/full" if mesh == "moe2x2" else "dense/full"]["params"].items()}
@@ -269,12 +303,14 @@ def test_capture_covers_every_element_exactly_once(request, mesh):
                 assert marks and all(
                     any(lo > 0 for _, lo, _ in cuts) for _, cuts in marks)
         if mesh == "moe2x2":
-            for r in (1, 3):
-                assert ranks[r][f"capture/{mesh}/marks/{t}"] == []
-            sent = ranks[2][f"capture/{mesh}/marks/{t}"]
-            assert sent and all(len(cuts) == 1 for _, cuts in sent)
+            for r in (1, 2, 3):
+                sent = ranks[r][f"capture/{mesh}/marks/{t}"]
+                assert sent == _moe_marks(r), r
+            assert {k for k, _ in _moe_marks(1)} >= {"we_gate", "we_up",
+                                                     "we_down"}
             assert ranks[0][f"capture/{mesh}/received/{t}"] == sum(
-                numel(k, cuts) for k, cuts in sent)
+                numel(k, cuts) for r in (1, 2, 3)
+                for k, cuts in ranks[r][f"capture/{mesh}/marks/{t}"])
         if mesh == "3x1":
             assert ranks[0][f"capture/{mesh}/received/{t}"] == 0
             assert all(cuts == () for _, cuts in

@@ -59,6 +59,9 @@ SHAPES = {"train": (32, 8), "prefill": (32, 8), "decode": (32, 8)}
 # reference cuts over "model" stays whole in the port where it computes
 # the layer whole (serving, and the families that are not tensor-parallel).
 INT_DTYPES = {"int32": "int64"}
+# the MoE train step traced on the fake (4, 2) world: (seq, batch), 2 rows
+# a dp rank
+MOE_SHAPE = (32, 8)
 
 
 def _run(script: str, *argv, env_extra=None, timeout=300) -> str:
@@ -127,7 +130,7 @@ from repro_torch.models import registry
 from repro_torch.optim.functional import OptimizerConfig
 from repro_torch.train.step import abstract_train_state, build_train_step
 
-ARCHS, SHAPES = %r, %r
+ARCHS, SHAPES, MOE_SHAPE = %r, %r, %r
 out = {"meshes": {}, "errors": {}}
 for multi, n in ((False, 256), (True, 512)):
     with fake_world(n):
@@ -171,6 +174,17 @@ with fake_world(8):
         out[arch + "/step"] = st.step
         out[arch + "/tp"] = registry.tensor_parallel(cfg)
 
+    # the reduced MoE train step, experts over model, under FSDP
+    cfg = C.get("arctic-480b").reduced()
+    rules = ShardingRules(mesh, fsdp=cfg.fsdp)
+    step = build_train_step(cfg, OptimizerConfig(), lambda s: 1e-3, rules)
+    r = analyze_step(step, abstract_train_state(cfg, rules),
+                     registry.input_specs(cfg, ShapeConfig(
+                         "t", MOE_SHAPE[0], MOE_SHAPE[1], "train"), rules))
+    out["moe"] = {k: r[k] for k in ("flops_per_device", "flops_by_op",
+                                    "collective_bytes_per_device",
+                                    "per_collective", "kernels")}
+
 with fake_world(4):
     mesh = Mesh.over_ranks((4, 1), ("data", "model"), device="cpu")
     cfg = C.get("tinyllama-1.1b").reduced()
@@ -184,7 +198,7 @@ with fake_world(4):
     out["ring"]["leaves"] = {k: [list(s.shape), s.size] for k, s in
                              registry.param_specs(cfg).items()}
 json.dump(out, open(sys.argv[1], "w"))
-""" % (ARCHS, SHAPES)
+""" % (ARCHS, SHAPES, MOE_SHAPE)
 
 
 @pytest.fixture(scope="module")
@@ -233,7 +247,7 @@ def test_stand_ins_match_the_references(ref, port, arch):
     holds whole."""
     want, got = ref[arch], port[arch]
     tp = port[arch + "/tp"]
-    assert tp == (arch in ("tinyllama-1.1b", "granite-34b",
+    assert tp == (arch in ("tinyllama-1.1b", "granite-34b", "arctic-480b",
                            "llava-next-mistral-7b", "vit-h-14"))
     assert port["coords"] == {"data": 0, "model": 0}
     assert set(got) == set(want) - {"fsdp"}
@@ -352,6 +366,38 @@ def test_ring_collective_bytes_match_the_closed_form(port):
     assert r["per_collective"]["recv_"] == 2 * (n - 1) * chunks
     assert r["per_collective"]["allreduce_"] == 8
     assert r["collective_bytes_per_device"] == 2 * (n - 1) * chunks + 8
+
+
+def test_moe_step_traces_with_its_experts_over_model(port):
+    """The reduced arctic train step traces on the fake (4, 2) world (the
+    dispatch has no data-dependent shape) with each rank's two of the 4
+    experts: its batched products are the experts' (E/m) * C * d * fm per
+    product, three a layer, counted as the dense closed form counts (the
+    forward, the remat forward and a backward of twice the forward: every
+    expert product is recomputed, since the combine saves its output),
+    plus the plain attention backward's five products at this rank's
+    heads; the flash kernel runs twice a layer."""
+    from repro_torch.models import moe
+    cfg = TC.get("arctic-480b").reduced()
+    r = port["moe"]
+    s, b = MOE_SHAPE
+    n, m = 4, 2                                  # the mesh's dp and model
+    rows = b // n // cfg.microbatches
+    t = rows * s
+    c = moe.capacity(cfg, t)
+    experts = cfg.num_experts // m
+    product = 2 * experts * c * cfg.d_model * cfg.moe_d_ff
+    attn_bwd = 5 * 2 * rows * (cfg.num_heads // m) * s * s * cfg.head_dim
+    want = cfg.num_layers * cfg.microbatches * (
+        3 * (1 + 1 + 2) * product + attn_bwd)
+    assert r["flops_by_op"]["bmm"] == want
+    assert r["kernels"]["flash_attention"]["calls"] == \
+        2 * cfg.num_layers * cfg.microbatches
+    # the experts' partial sums, the attention, the residual and the vocab
+    # all-reduced over model; the counts over data; the ring over data
+    assert r["per_collective"]["allreduce_"] > 0
+    assert r["per_collective"]["send"] > 0
+    assert r["collective_bytes_per_device"] > 0
 
 
 # -- the CLI ----------------------------------------------------------------------
