@@ -17,9 +17,10 @@ Phases, in order; any failed check raises and the script exits nonzero:
              and with a q_offset in bf16 and f32: llama3.2-3b's
              sequence-sharded rows (256 of 4096 at 3840, 24:8, 128), the
              tensor-parallel CPU test's reduced shape and rows that end
-             before the last key), at each phase-4c tensor-parallel
-             yardstick's local attention shape (arctic's 14:2 heads at
-             d 128 a rank of (1, 4)), on test shapes and again on every
+             before the last key), at each phase-4c rank yardstick's
+             local attention shape (arctic's 14:2 heads at d 128 a rank
+             of (1, 4), its 56:8 heads on one row a rank of (4, 1)), on
+             test shapes and again on every
              leaf and bucket of the main path, and time kernel, plain
              version, bound and one library call (the library call is a
              yardstick only; the port never makes it).
@@ -89,15 +90,22 @@ Phases, in order; any failed check raises and the script exits nonzero:
              4b's cut, and arctic-480b at phase 8's cut (1 layer, 8
              experts, 2 a rank over ``model``, batch 4 x 2048 in 2
              microbatches), whose expert-parallel step routes every token
-             on every model rank and runs its own two experts.
+             on every model rank and runs its own two experts. Then the
+             FSDP yardstick, the same checks for rank 0 of a (4, 1) mesh
+             with FSDP: arctic-480b at phase 8's width, 4 layers, 8 x 2048
+             in 2 microbatches, every ``wemb`` dim cut over the 4 data
+             ranks and gathered a layer at a time in bf16 (forward and
+             remat), its gradient reduce-scattered when the layer's
+             backward ends; its step ms and card peak on a line of their
+             own.
 5. checkpointers — the training CLI (``repro_torch.launch.train.run``)
-             at full width and depth, ``--freq 1``, 5 steps, once per
-             checkpointer: none; checkmate (2 async nodes, lag bound 2);
-             checkmate --compress; the same two over ``--channel
-             packetized --topology rail-optimized`` (the gradients cross
-             the simulated multicast fabric; these two at 6 layers,
-             ``--layers 6``); sync; async; torch_dcp;
-             gemini; checkfreq (the last five at ``--layers 2``). Every
+             at full width, ``--freq 1``, 5 steps, once per checkpointer:
+             none; checkmate (2 async nodes, lag bound 2); checkmate
+             --compress; the same two over ``--channel packetized
+             --topology rail-optimized`` (the gradients cross the
+             simulated multicast fabric) (these five at ``--layers 6``);
+             sync; async; torch_dcp; gemini; checkfreq (the last five at
+             ``--layers 2``). Every
              run but none fails at step 4. Each
              stall ledger must sum bit for bit, none must book no stall,
              each Checkmate run must lose no step at the failure, each
@@ -114,7 +122,7 @@ Phases, in order; any failed check raises and the script exits nonzero:
              surviving shard stays bitwise the trainer's, and both fabric
              engines give one result; a one-node apply at full width times
              what its staged receive hides.
-6. durability — the durable shadow plane at full width and depth:
+6. durability — the durable shadow plane at full width, 2 layers:
              train() through a CheckmateCheckpointer with a DurableShadow
              (2 async nodes, lag bound 2, one LocalDiskTier under a
              temporary directory whose free space is checked first):
@@ -128,11 +136,11 @@ Phases, in order; any failed check raises and the script exits nonzero:
              ShadowNodeLoss with total set and durable_hint
              ("local-disk", 6)); compressed — the same with int8 deltas, 4
              steps: each delta epoch smaller than the base, the total-loss
-             restore within atol 1e-2 of the params; Adam and SGD at 2
-             layers, 3 steps, a flush every step: shadow and restores
-             bitwise; and the shadow planner (one measured apply on the
-             card, and the cost model with the durability terms). Each run
-             reports step and iteration medians beside phase 4's step,
+             restore within atol 1e-2 of the params; Adam and SGD, 3
+             steps, a flush every step: shadow and restores bitwise; and
+             the shadow planner at full depth (one measured apply on the
+             card, and the cost model with the durability terms, against
+             phase 4's step). Each run reports step and iteration medians,
              stall per checkpoint, flush and locked-snapshot ms, bytes per
              epoch, tier lag, disk peak and write rate, restore ms, and
              device and host peaks.
@@ -154,14 +162,14 @@ Phases, in order; any failed check raises and the script exits nonzero:
              JAX package's CPU baseline (benchmarks/golden_budget.json), a
              yardstick only.
 8. families — every model family's training path at full width, cut in
-             depth (and arctic's experts 128 -> 8) only as far as 80 GB
-             with a shadow forces: granite-34b (2 layers; gelu2, GQA
+             depth (and arctic's experts 128 -> 8) as far as 80 GB with a
+             shadow forces, and whisper and vit for the time limit: granite-34b (2 layers; gelu2, GQA
              48:1), arctic-480b (1 layer, 8 experts; MoE), mamba2-2.7b (2
              layers, SSD at its published chunk 256), zamba2-1.2b (12
-             layers: two calls of the shared block), whisper-medium (full
-             depth, 1500 frames, 448 text tokens), llava-next-mistral-7b
+             layers: two calls of the shared block), whisper-medium (6 +
+             6 layers, 1500 frames, 448 text tokens), llava-next-mistral-7b
              (2 layers, 576 patches + 1472 tokens) and vit-h-14 as a ViT
-             (full depth, 256 patches). Each first holds its .reduced()
+             (8 layers, 256 patches). Each first holds its .reduced()
              config at f32, 3 steps on the card against 3 on the CPU, to
              rtol 1e-4, and one forward at its run's widths, 2 layers (the
              hybrid: one segment, so one shared-block call; whisper 2 + 2),
@@ -186,7 +194,7 @@ Phases, in order; any failed check raises and the script exits nonzero:
              llava after 576 patches). Each: finite logits; the cache's
              length prompt (+ patches) + steps; the wgmma flash kernel
              launched exactly once per prefill attention call (layers;
-             zamba2 its shared-block calls; whisper 24 + 2 x 24; mamba2 0),
+             zamba2 its shared-block calls; whisper 6 + 2 x 6; mamba2 0),
              each at a shape phase 2 held, and no kernel during decode;
              the mma.sync one never; a second decode from the same prefill
              the same tokens. Before each, its config at 2 layers (zamba2
@@ -205,7 +213,7 @@ Phases, in order; any failed check raises and the script exits nonzero:
              nodes), stalls (Fig 2: gpt3-xl, 2 layers, 8 x 2048, six
              systems: 4 steps, the four copy-persist ones 1), throughput (Fig 6: vit-h-14, gpt2-1.5b and
              gpt3-xl at 2 layers, llama2-7b at 1; no checkpoint and
-             Checkmate 8 steps at each; async and gemini 3 steps and
+             Checkmate 8 steps at each; async and gemini 2 steps and
              CheckFreq 6 at vit-h-14),
              shadow_timing (Fig 7, and its --json: flat against per-leaf,
              the arctic-480b fleet plan, the sharded critical path),
@@ -232,7 +240,8 @@ JSON line, ``flash_d128``, ``flash_f32_d128``,
 launches), ``flash_q_offset`` (llama3.2-3b's last sequence-sharded rows,
 beside SDPA with the bottom-right mask), ``flash_ep_rank`` (an
 expert-parallel arctic rank's heads, with one step of phase 4c's
-launches) and ``pack_host`` timing lines, a ``kernels`` JSON line,
+launches), ``flash_fsdp_rank`` (an FSDP arctic rank's, with one step of
+the FSDP yardstick's launches) and ``pack_host`` timing lines, a ``kernels`` JSON line,
 a ``checkpointers`` JSON line, a ``durability`` JSON line, a ``harness``
 JSON line, a ``families`` JSON line, a ``serving`` JSON line, a
 ``benchmarks`` JSON line (each twin's CSV rows, seconds, launches and
@@ -278,12 +287,15 @@ CKPT_STEPS, CKPT_FAIL = 5, 4
 # only sums, which the first steps' pinned allocations inflate)
 MEDIAN_SPANS = ("checkpoint.on_step", "channel.quantize", "channel.send",
                 "fabric.simulate", "capture.d2h", "shadow.apply")
-# the packetized rows run at PACKETIZED_LAYERS layers (full width): the
-# host simulating the fabric costs about 1.3 s a step at full depth, and
+# the none and Checkmate rows run at CKPT_LAYERS layers (full width): the
+# host simulating the fabric costs about 1.3 s a step at full depth, a
+# full-depth Checkmate run holds two 13.2 GB shadow copies on the host, and
 # the whole script must stay well inside its time limit
-PACKETIZED_LAYERS = 6
+CKPT_LAYERS = 6
+DEPTH = ("--layers", str(CKPT_LAYERS))
+ASYNC = ("--shadow-async", "--max-lag-steps", "2")
 PACKETIZED = ("--channel", "packetized", "--topology", "rail-optimized",
-              "--layers", str(PACKETIZED_LAYERS))
+              *DEPTH)
 # the five copy-persist rows run at COPY_PERSIST_LAYERS layers (full
 # width): each of their checkpoints copies the whole state through
 # pageable host memory (40-75 s a run at full depth, 10-22 s of stall at
@@ -291,12 +303,11 @@ PACKETIZED = ("--channel", "packetized", "--topology", "rail-optimized",
 COPY_PERSIST_LAYERS = 2
 COPY_PERSIST = ("--layers", str(COPY_PERSIST_LAYERS))
 CKPT_RUNS = (
-    ("none", ()),
-    ("checkmate", ("--shadow-async", "--max-lag-steps", "2")),
-    ("checkmate", ("--shadow-async", "--max-lag-steps", "2", "--compress")),
-    ("checkmate", ("--shadow-async", "--max-lag-steps", "2", *PACKETIZED)),
-    ("checkmate", ("--shadow-async", "--max-lag-steps", "2", *PACKETIZED,
-                   "--compress")),
+    ("none", DEPTH),
+    ("checkmate", (*ASYNC, *DEPTH)),
+    ("checkmate", (*ASYNC, *DEPTH, "--compress")),
+    ("checkmate", (*ASYNC, *PACKETIZED)),
+    ("checkmate", (*ASYNC, *PACKETIZED, "--compress")),
     *((name, COPY_PERSIST)
       for name in ("sync", "async", "torch_dcp", "gemini", "checkfreq")))
 
@@ -495,9 +506,10 @@ def flash_cases() -> tuple[list, int]:
               (2, 2048, 32, 4, 64, torch.float32, True)]    # phase 3's
     cases = [(b, s, s, h, kv, d, dt, causal)
              for b, s, h, kv, d, dt, causal in cases]
-    cases += [c for cut, batch, seq in tp_yard_cells().values()
-              for c in attention_shapes(tp_local(cut), seq,
-                                        batch // cut.microbatches)]
+    cases += [c for cut, batch, seq, mesh in rank_yard_cells().values()
+              for c in attention_shapes(rank_local(cut, mesh), seq,
+                                        batch // mesh[0]
+                                        // cut.microbatches)]
     family = family_flash_cases()
     return cases + family, len(family)
 
@@ -716,11 +728,17 @@ def time_kernels(dev, cfg, errs: dict) -> tuple[list[dict], dict, dict]:
                                         q_offset=off)
     # an expert-parallel rank's attention: arctic's heads a rank of
     # phase 4c's (1, 4) mesh, one microbatch
-    cut, bsz, sq = tp_yard_cells()["arctic"]
-    loc = tp_local(cut)
+    cut, bsz, sq, mesh = rank_yard_cells()["arctic"]
+    loc = rank_local(cut, mesh)
     extra["flash_ep_rank"] = flash_row(
         dev, gen, (bsz // cut.microbatches, sq, loc.num_heads,
                    loc.num_kv_heads, loc.head_dim), torch.bfloat16, errs)
+    # an FSDP rank's attention: arctic's whole heads on phase 4c's (4, 1)
+    # mesh, one microbatch of that rank's batch
+    cut, bsz, sq, mesh = rank_yard_cells()["fsdp"]
+    extra["flash_fsdp_rank"] = flash_row(
+        dev, gen, (bsz // mesh[0] // cut.microbatches, sq, cut.num_heads,
+                   cut.num_kv_heads, cut.head_dim), torch.bfloat16, errs)
     for r in rows + list(extra.values()):
         r["route"] = "cuda"
         by = ", ".join(filter(None, (r["bound_by"], r.get("bound_unit"))))
@@ -1231,44 +1249,56 @@ def dryrun_yardstick(cfg) -> dict:
             "roofline_share": rf.step_time_s / step_s}
 
 
-# The tensor-parallel yardsticks: rank 0 of a (1, 4) ("data", "model")
-# mesh in a fake world of 4 ranks. Their collectives move nothing on the
-# card, so their values are not checked: only the local shapes, the peak,
-# the time and the launches.
+# The rank yardsticks: rank 0 of a mesh in a fake world of its size. Their
+# collectives move nothing on the card, so their values are not checked:
+# only the local shapes, the peak, the time and the launches. The
+# tensor-parallel ones run on a (1, 4) ("data", "model") mesh, the FSDP
+# one on (4, 1).
 TP_YARD_MESH = (1, 4)
+FSDP_YARD_MESH = (4, 1)
 # timed steps after two warm-up ones (the step is host-paced: a quarter of
 # the one-rank step's device work, the same number of launches); the
 # median is reported
 TP_YARD_STEPS = 3
+# the FSDP yardstick: arctic at phase 8's width, 4 layers, 8 x 2048 (two
+# rows a rank) in 2 microbatches
+FSDP_YARD_LAYERS, FSDP_YARD_BATCH = 4, 8
 
 
-def tp_yard_cells() -> dict:
-    """label: (config cut, global batch, token seq) of each yardstick:
-    tinyllama at phase 4b's cut (its 32 heads and 4 kv heads divide 4, so
-    every leaf the spec maps to model is cut on whole heads), and arctic
-    at phase 8's (56 heads and 8 kv heads: 14 and 2 a rank; 8 experts: 2
-    a rank)."""
+def rank_yard_cells() -> dict:
+    """label: (config cut, global batch, token seq, mesh) of each
+    yardstick: tinyllama at phase 4b's cut (its 32 heads and 4 kv heads
+    divide 4, so every leaf the spec maps to model is cut on whole
+    heads), and arctic at phase 8's (56 heads and 8 kv heads: 14 and 2 a
+    rank; 8 experts: 2 a rank), each on TP_YARD_MESH; and ``fsdp``:
+    arctic at phase 8's width on FSDP_YARD_MESH with FSDP, every ``wemb``
+    dim cut over the 4 data ranks and gathered a layer at a time."""
     from repro_torch import configs
     return {"tinyllama": (dataclasses.replace(
                 configs.get(DRYRUN_ARCH), num_layers=RANKS_LAYERS),
-                MAIN_RUN["batch"], MAIN_RUN["seq"]),
+                MAIN_RUN["batch"], MAIN_RUN["seq"], TP_YARD_MESH),
             "arctic": (family_cfg("arctic"), FAMILY_BATCH,
-                       FAMILY_CELLS["arctic"][2])}
+                       FAMILY_CELLS["arctic"][2], TP_YARD_MESH),
+            "fsdp": (dataclasses.replace(family_cfg("arctic"),
+                                         num_layers=FSDP_YARD_LAYERS,
+                                         fsdp=True),
+                     FSDP_YARD_BATCH, FAMILY_CELLS["arctic"][2],
+                     FSDP_YARD_MESH)}
 
 
-def tp_local(cut):
-    """``cut`` with the heads rank 0 of TP_YARD_MESH attends over (both
-    yardsticks cut q and kv heads on whole heads)."""
-    m = TP_YARD_MESH[1]
+def rank_local(cut, mesh):
+    """``cut`` with the heads rank 0 of ``mesh`` attends over (every
+    yardstick cuts q and kv heads on whole heads)."""
+    m = mesh[1]
     check(cut.num_heads % m == 0 and cut.num_kv_heads % m == 0,
           f"dryrun: {cut.name}'s heads do not split over {m} model ranks")
     return dataclasses.replace(cut, num_heads=cut.num_heads // m,
                                num_kv_heads=cut.num_kv_heads // m)
 
 
-def tp_yardstick(label: str) -> dict:
-    """`analyze_step` for rank 0 of TP_YARD_MESH beside that rank's local
-    step on the card for the yardstick ``label`` of `tp_yard_cells` (the
+def rank_yardstick(label: str) -> dict:
+    """`analyze_step` for rank 0 of the mesh of the yardstick ``label``
+    of `rank_yard_cells` beside that rank's local step on the card (the
     fake backend takes CUDA tensors too; the median of TP_YARD_STEPS
     steps, the peak over them): every local leaf the shape of its
     stand-in, the predicted arguments + temporaries within
@@ -1289,21 +1319,20 @@ def tp_yardstick(label: str) -> dict:
     from repro_torch.train.step import (abstract_train_state,
                                         build_train_step, make_train_state)
     t_start = time.perf_counter()
-    cut, batch_size, seq = tp_yard_cells()[label]
-    shape = ShapeConfig(f"tp-{label}", seq, batch_size, "train")
+    cut, batch_size, seq, mesh = rank_yard_cells()[label]
+    shape = ShapeConfig(f"rank-{label}", seq, batch_size, "train")
     opt = OptimizerConfig()
     names = ("data", "model")
-    with fake_world(math.prod(TP_YARD_MESH)):
-        rules = ShardingRules(Mesh.over_ranks(TP_YARD_MESH, names,
-                                              device="cpu"),
+    with fake_world(math.prod(mesh)):
+        rules = ShardingRules(Mesh.over_ranks(mesh, names, device="cpu"),
                               fsdp=cut.fsdp)
         stand_in = abstract_train_state(cut, rules)
         a = analyze_step(build_train_step(cut, opt, lambda s: 1e-3, rules),
                          stand_in, registry.input_specs(cut, shape, rules))
         del a["result"]
         rf = Roofline(
-            arch=cut.name, shape=shape.name, mesh="1x4 rank 0",
-            chips=math.prod(TP_YARD_MESH),
+            arch=cut.name, shape=shape.name,
+            mesh=f"{mesh[0]}x{mesh[1]} rank 0", chips=math.prod(mesh),
             flops_per_device=a["flops_per_device"],
             bytes_per_device=a["bytes_per_device"],
             collective_bytes_per_device=a["collective_bytes_per_device"],
@@ -1311,15 +1340,14 @@ def tp_yardstick(label: str) -> dict:
             per_collective=a["per_collective"])
         predicted = a["memory"]["argument_bytes"] + a["memory"]["temp_bytes"]
 
-        card = ShardingRules(Mesh.over_ranks(TP_YARD_MESH, names),
-                             fsdp=cut.fsdp)
+        card = ShardingRules(Mesh.over_ranks(mesh, names), fsdp=cut.fsdp)
         _free()
         base = torch.cuda.memory_allocated()
         state = make_train_state(cut, 0, "cuda", card)
         for tree in ("params", "mu", "nu"):
             for k, t in getattr(state, tree).items():
                 check(t.shape == getattr(stand_in, tree)[k].shape,
-                      f"dryrun: {label} tp {tree}[{k}] {tuple(t.shape)} on "
+                      f"dryrun: {label} {tree}[{k}] {tuple(t.shape)} on "
                       f"the card, {tuple(getattr(stand_in, tree)[k].shape)} "
                       f"traced")
         batch = device_batch(SyntheticStream(cut, batch_size,
@@ -1351,17 +1379,17 @@ def tp_yardstick(label: str) -> dict:
     check(launches["flash_attention_wgmma"] == flash
           and a["kernels"]["flash_attention"]["calls"] == flash
           and launches["fused_adamw"] == a["kernels"]["fused_adamw"]["calls"],
-          f"dryrun: {label} tp step launched {launches}, the analysis "
+          f"dryrun: {label} step launched {launches}, the analysis "
           f"recorded {a['kernels']} (flash {flash})")
     check(abs(err) <= DRYRUN_MEMORY_RTOL,
-          f"dryrun: {label} tp predicted {predicted} bytes vs the card's "
+          f"dryrun: {label} predicted {predicted} bytes vs the card's "
           f"peak {peak} ({err:+.1%}; tolerance {DRYRUN_MEMORY_RTOL:.0%})")
     check(local_s <= step_s,
-          f"dryrun: {label} tp roofline {local_s * 1e3:.2f} ms (compute and "
+          f"dryrun: {label} roofline {local_s * 1e3:.2f} ms (compute and "
           f"memory) beats the measured {step_s * 1e3:.2f} ms")
     return {"model": cut.name, "layers": cut.num_layers,
-            "experts": cut.num_experts, "mesh": list(TP_YARD_MESH),
-            "batch": batch_size, "seq": seq,
+            "experts": cut.num_experts, "mesh": list(mesh),
+            "fsdp": cut.fsdp, "batch": batch_size, "seq": seq,
             "microbatches": cut.microbatches,
             "predicted_bytes": predicted, "memory": a["memory"],
             "peak_bytes": peak, "memory_err": err,
@@ -1377,8 +1405,9 @@ def tp_yardstick(label: str) -> dict:
             "seconds": time.perf_counter() - t_start}
 
 
-def _print_tp_yardstick(label: str, tp: dict, extra: str = "") -> None:
-    print(f"dryrun: tensor-parallel yardstick {label} ({tp['model']}), "
+def _print_rank_yardstick(kind: str, label: str, tp: dict,
+                          extra: str = "") -> None:
+    print(f"dryrun: {kind} yardstick {label} ({tp['model']}), "
           f"rank 0 of {tp['mesh']}, {tp['layers']} layers, {tp['batch']} x "
           f"{tp['seq']}: predicted {tp['predicted_bytes'] / 1e9:.3f} GB, "
           f"card peak {tp['peak_bytes'] / 1e9:.3f} GB "
@@ -1405,8 +1434,9 @@ def phase_dryrun(cfg) -> dict:
             out = os.path.join(tmp, f"{mesh}.json")
             procs[out] = _start_dryrun(out, flags)
         yard = dryrun_yardstick(cfg)
-        tp = tp_yardstick("tinyllama")
-        ep = tp_yardstick("arctic")
+        tp = rank_yardstick("tinyllama")
+        ep = rank_yardstick("arctic")
+        fs = rank_yardstick("fsdp")
         for out, proc in procs.items():
             log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
             check(proc.returncode == 0,
@@ -1460,13 +1490,17 @@ def phase_dryrun(cfg) -> dict:
           f"({yard['roofline']['bound']}-bound), measured "
           f"{yard['step_ms']:.2f} ms, share {yard['roofline_share']:.3f}; "
           f"{card_name_power()}", flush=True)
-    _print_tp_yardstick("tinyllama", tp,
-                        f" against the one-rank {yard['step_ms']:.2f} ms "
-                        f"({tp['step_ms'] / yard['step_ms']:.3f})")
-    _print_tp_yardstick("arctic", ep)
+    _print_rank_yardstick("tensor-parallel", "tinyllama", tp,
+                          f" against the one-rank {yard['step_ms']:.2f} ms "
+                          f"({tp['step_ms'] / yard['step_ms']:.3f})")
+    _print_rank_yardstick("tensor-parallel", "arctic", ep)
+    _print_rank_yardstick("FSDP", "arctic", fs)
+    print(f"dryrun: FSDP yardstick step {fs['step_ms']:.2f} ms, card peak "
+          f"{fs['peak_bytes'] / 1e9:.3f} GB; {card_name_power()}",
+          flush=True)
     return {"arch": DRYRUN_ARCH, "cells": cells,
             "multi_over_single_flops": half, "yardstick": yard,
-            "tp_yardstick": tp, "ep_yardstick": ep,
+            "tp_yardstick": tp, "ep_yardstick": ep, "fsdp_yardstick": fs,
             "card": card_name_power()}
 
 
@@ -1958,9 +1992,11 @@ def phase_checkpointers(cfg, dev) -> dict:
 
 # -- phase 6 -----------------------------------------------------------------
 
-# Phase 6: the durable shadow plane at MAIN_RUN's width, depth, batch and
-# seq. The raw run fails at DUR_FAIL; every run flushes every DUR_EVERY
-# steps to one local-disk tier under a temporary directory.
+# Phase 6: the durable shadow plane at MAIN_RUN's width, batch and seq, cut
+# to DUR_LAYERS layers (a full-depth run writes 13.2 GB an epoch and takes
+# 70-100 s). The raw run fails at DUR_FAIL; every run flushes every
+# DUR_EVERY steps to one local-disk tier under a temporary directory.
+DUR_LAYERS = 2
 DUR_STEPS, DUR_FAIL, DUR_EVERY = 6, 4, 2
 DUR_COMPRESSED_STEPS, DUR_SMALL_STEPS = 4, 3
 STALL_WORDS = ("flush", "durability", "tier")     # no such stage may appear
@@ -2047,7 +2083,7 @@ def _state_on_card_equal(state, ref, what: str):
 
 def durable_run(cfg, label: str, *, steps: int, fail, compress: bool,
                 opt_name: str = "adamw", every: int = DUR_EVERY,
-                rebase: int = 2, retain: int = 1, step_ms_ref=None,
+                rebase: int = 2, retain: int = 1,
                 check_shadow: bool = False) -> dict:
     """One training run through a CheckmateCheckpointer with a durable
     shadow plane (2 async nodes, lag bound 2) at ``cfg``'s depth (with
@@ -2215,7 +2251,6 @@ def durable_run(cfg, label: str, *, steps: int, fail, compress: bool,
             "retain_epochs": retain, "state_bytes": state_bytes,
             "steps_run": st.steps, "recovered_at": st.recovered_at,
             "step_ms": st.steady_iter * 1e3,
-            "step_ms_main_path": step_ms_ref,
             "iter_ms": statistics.median(iters[1:]) * 1e3,
             "step_ms_all": [t * 1e3 for t in st.iter_times],
             "capture_ms_all": [t * 1e3 for t in st.capture_times],
@@ -2249,8 +2284,8 @@ def durable_run(cfg, label: str, *, steps: int, fail, compress: bool,
             "host_peak_rss_gb": rss.peak / 1e9 if rss.peak is not None
             else None,
             "launches": launches, **out_recover}
-        print(f"durability: {label}: step {row['step_ms']:.2f} ms (main "
-              f"path {step_ms_ref}), flush median {row['flush_ms_median']} "
+        print(f"durability: {label}: step {row['step_ms']:.2f} ms, flush "
+              f"median {row['flush_ms_median']} "
               f"ms, locked median {row['locked_ms_median']} ms, epochs "
               f"{ {k: (v['step'], v['kinds'], v['bytes']) for k, v in epochs.items()} }, "
               f"disk peak {disk.peak / 1e9:.2f} GB, restores "
@@ -2290,18 +2325,19 @@ def plan_row(cfg, iter_s: float) -> dict:
 
 
 def phase_durability(cfg, step_ms_ref: float) -> dict:
-    raw = durable_run(cfg, "raw", steps=DUR_STEPS, fail=DUR_FAIL,
-                      compress=False, step_ms_ref=step_ms_ref)
-    packed = durable_run(cfg, "compressed", steps=DUR_COMPRESSED_STEPS,
-                         fail=None, compress=True, rebase=8,
-                         step_ms_ref=step_ms_ref)
-    small = dataclasses.replace(cfg, num_layers=2)
-    others = [durable_run(small, f"{name} at 2 layers",
+    """The durable runs at DUR_LAYERS layers; the planner at full width
+    against the main path's step (``step_ms_ref``)."""
+    small = dataclasses.replace(cfg, num_layers=DUR_LAYERS)
+    raw = durable_run(small, "raw", steps=DUR_STEPS, fail=DUR_FAIL,
+                      compress=False)
+    packed = durable_run(small, "compressed", steps=DUR_COMPRESSED_STEPS,
+                         fail=None, compress=True, rebase=8)
+    others = [durable_run(small, f"{name} at {DUR_LAYERS} layers",
                           steps=DUR_SMALL_STEPS, fail=None, compress=False,
                           opt_name=name, every=1, rebase=8, retain=None,
                           check_shadow=True)
               for name in ("adam", "sgd")]
-    plan = plan_row(cfg, raw["iter_ms"] / 1e3)
+    plan = plan_row(cfg, step_ms_ref / 1e3)
     return {"model": cfg.name, "batch": MAIN_RUN["batch"],
             "seq": MAIN_RUN["seq"], "shadow_nodes": 2, "max_lag_steps": 2,
             "runs": [raw, packed, *others], "planner": plan}
@@ -2475,8 +2511,9 @@ def phase_harness() -> dict:
 # an in-process channel into a 2-node async shadow on the card. Global batch
 # FAMILY_BATCH in FAMILY_MICROBATCHES microbatches (cut from each config's
 # 8), FAMILY_STEPS steps, a failure at FAMILY_FAIL. Widths as published;
-# depth (and arctic's experts) cut only as far as 80 GB with a shadow
-# forces. label: (arch, config overrides, seq): seq is the token sequence
+# depth (and arctic's experts) cut as far as 80 GB with a shadow forces,
+# whisper's and vit's (24 + 24 and 32 layers) for the script's time limit.
+# label: (arch, config overrides, seq): seq is the token sequence
 # (whisper's decoder context; llava's text after its 576 patches; unused by
 # vit, which trains on its 256 patches).
 FAMILY_BATCH, FAMILY_MICROBATCHES = 4, 2
@@ -2486,9 +2523,10 @@ FAMILY_CELLS = {
     "arctic": ("arctic-480b", dict(num_layers=1, num_experts=8), 2048),
     "mamba2": ("mamba2-2.7b", dict(num_layers=2), 2048),
     "zamba2": ("zamba2-1.2b", dict(num_layers=12), 2048),
-    "whisper": ("whisper-medium", {}, 448),
+    "whisper": ("whisper-medium", dict(num_layers=6, encoder_layers=6),
+                448),
     "llava": ("llava-next-mistral-7b", dict(num_layers=2), 2048 - 576),
-    "vit": ("vit-h-14", dict(family="vit"), 256),
+    "vit": ("vit-h-14", dict(family="vit", num_layers=8), 256),
 }
 
 
@@ -3384,10 +3422,12 @@ def main():
     # are that run's prefill's
     flash_extra["flash_prefill"]["launches"] = \
         serving["runs"][0]["prefill_launches"]["flash_attention_wgmma"]
-    # the expert-parallel rank's row: one step of phase 4c's arctic
-    # yardstick
+    # the expert-parallel and FSDP ranks' rows: one step of phase 4c's
+    # arctic yardsticks
     flash_extra["flash_ep_rank"]["launches"] = \
         dryrun["ep_yardstick"]["launches"]["flash_attention_wgmma"]
+    flash_extra["flash_fsdp_rank"]["launches"] = \
+        dryrun["fsdp_yardstick"]["launches"]["flash_attention_wgmma"]
     print(f"timing: seconds by phase {secs}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -35,10 +35,11 @@ CARD_MODELS = [("vit-h-14", 8, 128, 2), ("gpt2-1.5b", 8, 2048, 2),
 SYSTEMS = ("no_checkpoint", "checkmate", "async", "gemini", "checkfreq")
 # steps per system on the card: no-checkpoint and Checkmate steps are
 # short, so 8 give a median of 7; each copy-persist step copies the whole
-# state through pageable host memory, so async and gemini run 3;
-# CheckFreq checkpoints its first 3 (profiled) steps, then runs 3 at the
-# interval it tuned
-CARD_STEPS = {"no_checkpoint": 8, "checkmate": 8, "async": 3, "gemini": 3,
+# state through pageable host memory, seconds a step, so async and gemini
+# run 2 (the first is left out of the throughput, so one step and its
+# checkpoint give their row); CheckFreq checkpoints its first 3
+# (profiled) steps, then runs 3 at the interval it tuned
+CARD_STEPS = {"no_checkpoint": 8, "checkmate": 8, "async": 2, "gemini": 2,
               "checkfreq": 6}
 # the models the copy-persist systems run at on the card: the vision
 # model's state is 0.66 GB, an LM's 4-6 GB, seconds a checkpoint (PERF.md

@@ -50,6 +50,9 @@ reference's either way.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
 from typing import Optional
 
@@ -57,6 +60,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve
+from repro_torch.dist.collectives import ring_reduce_scatter_
 
 # Logical names that map to the tensor-parallel ("model") axis. Weight dims
 # and activation dims are listed together: they resolve identically.
@@ -336,6 +340,86 @@ class NamedSharding:
 
     def __repr__(self) -> str:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, sharding, dim, dtype):
+        ctx.sharding, ctx.dim = sharding, dim
+        return torch.cat(sharding.mesh.all_gather(local.to(dtype),
+                                                  sharding.axes), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        sh, d = ctx.sharding, ctx.dim
+        # the step's ZeRO-1 ring, on the f32 gradient with its cut dim in
+        # front: every element in the chunk, and the ring order, of the
+        # whole leaf's reduce-scatter
+        front = g.movedim(d, 0).to(torch.float32, copy=True,
+                                   memory_format=torch.contiguous_format)
+        chunk = ring_reduce_scatter_(front.reshape(sh.n, -1), sh.mesh,
+                                     sh.axes)
+        out = chunk.reshape((front.shape[0] // sh.n,) + front.shape[1:])
+        return out.movedim(0, d).clone(
+            memory_format=torch.contiguous_format), None, None, None
+
+
+def fsdp_gather(local: torch.Tensor, sharding: NamedSharding, dim: int,
+                dtype) -> torch.Tensor:
+    """An FSDP leaf's slice ``local`` (f32, cut over ``sharding.n`` > 1
+    dp ranks) cast to ``dtype`` and gathered over them along ``dim``
+    (``sharding.dim``, less one for a layer's slice of a stacked leaf), a
+    model cut staying as it is; the gradient upcast to f32 and ring
+    reduce-scattered back onto the slice, summed over the dp ranks (not
+    divided by them)."""
+    return _FsdpGather.apply(local, sharding, dim, dtype)
+
+
+_PER_LAYER = contextvars.ContextVar("fsdp_per_layer", default=None)
+
+
+@contextlib.contextmanager
+def gather_per_layer(leaves, dtype):
+    """Within, `layer_gathers` gathers each layer's slice of the stacked
+    FSDP leaves ``leaves`` (``(local leaf, NamedSharding)`` pairs, the
+    leaves as the loss reads them) with `fsdp_gather` in ``dtype``. Every
+    leaf must reach a layer loop: one that does not raises on exit."""
+    ctx = ({id(t): (t, sh) for t, sh in leaves}, dtype, set())
+    token = _PER_LAYER.set(ctx)
+    try:
+        yield
+    finally:
+        _PER_LAYER.reset(token)
+    missed = set(ctx[0]) - ctx[2]
+    if missed:
+        raise RuntimeError(f"{len(missed)} stacked FSDP leaves never "
+                           f"reached a layer loop")
+
+
+def _keep(w):
+    return w
+
+
+def layer_gathers(stacked: dict) -> list:
+    """For each leaf of ``stacked`` (``(layers, ...)`` tensors, or slices
+    of them along the layers), the function a layer applies to its slice
+    of it: under `gather_per_layer`, `fsdp_gather` for an FSDP leaf, and
+    the slice as it is otherwise."""
+    ctx = _PER_LAYER.get()
+    if ctx is None:
+        return [_keep] * len(stacked)
+    leaves, dtype, seen = ctx
+    out = []
+    for t in stacked.values():
+        root = id(t if t._base is None else t._base)
+        if root not in leaves:
+            out.append(_keep)
+            continue
+        seen.add(root)
+        sh = leaves[root][1]
+        out.append(functools.partial(fsdp_gather, sharding=sh,
+                                     dim=sh.dim - 1, dtype=dtype))
+    return out
 
 
 def unravel(i: int, extents) -> list:

@@ -5,8 +5,8 @@ A production mesh is a named mesh over the ranks of the default process
 group: single pod (data=16, model=16), 256 ranks; multi-pod (pod=2,
 data=16, model=16), 512. A real run gets them from ``torchrun`` with one
 process per card; the dry run (`repro_torch.launch.dryrun`) gets them
-from `fake_world`, one process that plays rank 0 of a world whose other
-ranks do not exist.
+from `fake_world`, one process that plays one rank (rank 0 unless asked
+otherwise) of a world whose other ranks do not exist.
 """
 from __future__ import annotations
 
@@ -61,11 +61,11 @@ def join_world(device: torch.device):
 
 
 @contextlib.contextmanager
-def fake_world(world_size: int):
+def fake_world(world_size: int, rank: int = 0):
     """A default process group of ``world_size`` ranks in which this
-    process is rank 0 and no other rank exists: every collective returns
-    at once without moving data, so a step can be traced for one rank of a
-    production mesh on a host with no card.
+    process is rank ``rank`` and no other rank exists: every collective
+    returns at once without moving data, so a step can be traced for one
+    rank of a production mesh on a host with no card.
 
     The ``fake`` c10d backend is registered by importing
     ``torch.testing._internal.distributed.fake_pg``; without that import
@@ -82,7 +82,7 @@ def fake_world(world_size: int):
     if dist.is_initialized():
         raise RuntimeError("a default process group is already up")
     dist.init_process_group("cpu:fake,meta:fake,cuda:fake",
-                            store=FakeStore(), rank=0,
+                            store=FakeStore(), rank=rank,
                             world_size=world_size)
     try:
         yield

@@ -7,6 +7,9 @@ Per-layer weights are stacked ``(L, ...)`` leaves under the JAX package's
 names, so the two packages' bucket layouts are equal. The forward loops
 over the layers; with ``cfg.remat`` each layer is recomputed in the
 backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does there.
+Every family's training path runs its stacks through `run_layers`, which
+is where an FSDP step gathers each layer's weights
+(`repro_torch.dist.sharding.gather_per_layer`).
 
 Training takes ``rules``: on a mesh whose ``model`` extent is above 1 the
 layers run tensor-parallel (`repro_torch.dist.tensor_parallel`) on this
@@ -28,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.buckets import TORCH_DTYPES
 from repro_torch.dist import tensor_parallel as TP
+from repro_torch.dist.sharding import layer_gathers
 from repro_torch.models import layers as L
 from repro_torch.models.common import ParamSpec
 
@@ -146,17 +150,21 @@ def layers_of(stacked: dict) -> list:
 def run_layers(x, stacked: dict, body, remat: bool):
     """``x = body(x, lp)`` for each layer's slice ``lp`` of the stacked
     leaves (a scan over their leading axis), recomputed in the backward
-    when ``remat`` (one ``jax.checkpoint``-ed scan step each)."""
+    when ``remat`` (one ``jax.checkpoint``-ed scan step each). Under the
+    step's `gather_per_layer`, an FSDP leaf's slice is gathered inside
+    the recomputed function, so the gather runs again in the recompute
+    and no gathered weight is kept between the two."""
     keys = list(stacked)
+    gathers = layer_gathers(stacked)
 
     def one_layer(x, *ws):
-        return body(x, dict(zip(keys, ws)))
+        return body(x, {k: g(w) for k, g, w in zip(keys, gathers, ws)})
 
     for lp in layers_of(stacked):
         if remat and torch.is_grad_enabled():
             x = checkpoint(one_layer, x, *lp.values(), use_reentrant=False)
         else:
-            x = body(x, lp)
+            x = one_layer(x, *lp.values())
     return x
 
 

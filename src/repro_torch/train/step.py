@@ -14,11 +14,18 @@ the ring's owned chunk *is* the slice; a leaf with no dim that splits is
 all-reduced whole, as the reference leaves it replicated); the division
 by n; fused AdamW on the owned slices of params, mu and nu; the ring
 all-gather of the params. FSDP leaves (``rules.fsdp``: the ``wemb`` dim
-cut over the dp ranks) stay slices between steps, are all-gathered once
-before the forward, and their gradients reduce-scatter straight onto the
-slice the update writes; nothing is gathered after. The reduced slices
-are the capture point: each rank returns the ones it owns. At n = 1 the
-step runs today's kernels in today's order.
+cut over the dp ranks) stay f32 slices between steps and are gathered
+where they are read, as the reference's GSPMD gathers them inside its
+layer scan: each layer's slice of a stacked leaf is cast to the compute
+dtype and all-gathered just before that layer runs and again in its
+remat recompute (`repro_torch.dist.sharding.gather_per_layer`, applied by
+`repro_torch.models.transformer.run_layers`), a leaf outside the stacks
+once per microbatch; each gradient is upcast to f32 and ring
+reduce-scattered onto the slice as soon as the backward is done with it,
+once per microbatch. No full-width f32 copy of an FSDP leaf, nor of its
+gradient, is ever live, and nothing is gathered after the update. The
+reduced slices are the capture point: each rank returns the ones it
+owns. At n = 1 the step runs today's kernels in today's order.
 
 For a tensor-parallel family (`registry.TENSOR_PARALLEL`) on a mesh whose
 ``model`` extent m is above 1, each rank holds its model slice of every
@@ -42,7 +49,8 @@ from repro_torch.device import resolve
 from repro_torch.dist.collectives import (ring_all_gather_,
                                           ring_all_reduce_rs_ag,
                                           ring_reduce_scatter_)
-from repro_torch.dist.sharding import dp_axes, dp_size
+from repro_torch.dist.sharding import (dp_axes, dp_size, fsdp_gather,
+                                       gather_per_layer)
 from repro_torch.models import registry
 from repro_torch.optim.functional import (OptimizerConfig, TrainState,
                                           apply_updates, clip_scale,
@@ -106,7 +114,9 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
     The state is updated in place. ``grads`` are the f32 gradients the
     update applied (sum over microbatches, then divided by their count, as
     the JAX step does; over n > 1 dp ranks, this rank's reduced ZeRO-1
-    slices, and the whole reduced leaf where nothing is cut; over m > 1
+    slices, and the whole reduced leaf where nothing is cut; an FSDP
+    leaf's reduced per layer and microbatch in the backward, the others
+    after it; over m > 1
     model ranks, of the leaves' model slices); ``metrics``
     holds the loss and grad norm as device scalars (over ranks, their
     global values) and the lr and clip scale as the host floats that were
@@ -117,15 +127,31 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
     n = 1 if rules is None else dp_size(rules.mesh)
     m = model_size(cfg, rules)
     group_rules = rules if n > 1 or m > 1 else None
+    stacked = {k for k, ps in registry.param_specs(cfg).items()
+               if ps.logical[:1] == ("layers",)}
 
-    def loss_of(params, microbatch):
-        # cast the whole tree to the compute dtype before the layers
-        return registry.loss_fn({k: p.to(cd) for k, p in params.items()},
-                                cfg, microbatch, rules=group_rules)
+    def loss_of(params, microbatch, fsdp):
+        """The loss of one microbatch. A leaf of ``fsdp`` ({name: its
+        NamedSharding}) is gathered in the compute dtype where it is read:
+        a stacked one a layer at a time, any other once, here; every
+        other leaf is cast whole to the compute dtype before the layers."""
+        tree, per_layer = {}, []
+        for k, p in params.items():
+            if k not in fsdp:
+                tree[k] = p.to(cd)
+            elif k in stacked:
+                tree[k] = p
+                per_layer.append((p, fsdp[k]))
+            else:
+                tree[k] = fsdp_gather(p, fsdp[k], fsdp[k].dim, cd)
+        with gather_per_layer(per_layer, cd):
+            return registry.loss_fn(tree, cfg, microbatch,
+                                    rules=group_rules)
 
-    def local_grads(params: dict, batch: dict):
+    def local_grads(params: dict, batch: dict, fsdp: dict):
         """f32 gradients and loss of this rank's rows, averaged over the
-        microbatches."""
+        microbatches; a leaf of ``fsdp``'s gradient is its slice, reduced
+        over the dp ranks in each microbatch's backward."""
         mb = cfg.microbatches
         names = list(params)
         leaves = {k: p.detach().requires_grad_(True)
@@ -138,7 +164,7 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
         grads, loss = None, None
         for i in range(mb):
             one = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-            l = loss_of(leaves, one)
+            l = loss_of(leaves, one, fsdp)
             g = torch.autograd.grad(l, [leaves[k] for k in names])
             if grads is None:
                 grads, loss = dict(zip(names, g)), l.detach()
@@ -154,7 +180,7 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
         return grads, loss
 
     def train_step(state: TrainState, batch: dict):
-        grads, loss = local_grads(state.params, batch)
+        grads, loss = local_grads(state.params, batch, {})
         gnorm = global_norm(grads)
         lr = float(lr_fn(state.step))
         scale = clip_scale(opt, float(gnorm)) if opt.grad_clip else 1.0
@@ -183,22 +209,23 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
     counted = {k for k, z in sh.state.items()
                if (z.n > 1 or first) and (z.m > 1 or first_model)}
     norm_group = group if m == 1 else mesh.mesh_group
+    # the FSDP leaves, gathered where the loss reads them
+    fsdp = {k: ps for k, ps in sh.params.items() if ps.n > 1}
 
     def dp_train_step(state: TrainState, batch: dict):
         if "mask" in batch:
             raise ValueError("a masked batch over more than one rank needs "
                              "the global mask count; no stream has a mask")
-        # FSDP leaves: the one all-gather over dp before the forward
-        full = {k: sh.params[k].gather_dp(p)
-                for k, p in state.params.items()}
-        grads, loss = local_grads(full, batch)
-        del full
+        grads, loss = local_grads(state.params, batch, fsdp)
         nt = torch.full((), n, dtype=torch.float32, device=loss.device)
         owned = {}
         for k in list(grads):
             g, z = grads.pop(k), sh.state[k]
             if n == 1:             # model ranks alone: nothing to reduce
                 owned[k] = g
+                continue
+            if k in fsdp:          # reduced in the backward, layer by layer
+                owned[k] = g.div_(nt)
                 continue
             if z.n == 1:           # replicated: all-reduced whole
                 owned[k] = ring_all_reduce_rs_ag(g, mesh, dp)[0].div_(nt)
