@@ -19,8 +19,9 @@ Phases, in order; any failed check raises and the script exits nonzero:
              tensor-parallel CPU test's reduced shape and rows that end
              before the last key), at each phase-4c rank yardstick's
              local attention shape (arctic's 14:2 heads at d 128 a rank
-             of (1, 4), its 56:8 heads on one row a rank of (4, 1)), on
-             test shapes and again on every
+             of (1, 4), its 56:8 heads on one row a rank of (4, 1), and
+             the serving yardstick's 8:1 heads at d 64, batch 8 x 2048),
+             on test shapes and again on every
              leaf and bucket of the main path, and time kernel, plain
              version, bound and one library call (the library call is a
              yardstick only; the port never makes it).
@@ -57,7 +58,10 @@ Phases, in order; any failed check raises and the script exits nonzero:
              are held on gloo ranks by the CPU tests. Before the runs,
              the tensor-parallel Functions on CUDA tensors over that
              mesh's model group of one rank: each the identity, forward
-             and backward (train(rules=) then runs the plain layers).
+             and backward (train(rules=) then runs the plain layers);
+             and serving under that mesh's rules (phase 9's dense batch
+             8 x prompt 2048 at 2 layers, 8 greedy decode steps) bitwise
+             serving with no rules: prefill logits, tokens and cache.
 4c. dryrun — the port's dry run (``python -m repro_torch.launch.dryrun
              --arch tinyllama-1.1b``, and again with ``--multi-pod``) in
              two subprocesses that see no card (a fake world of 256 or
@@ -74,9 +78,9 @@ Phases, in order; any failed check raises and the script exits nonzero:
              8 x 2048, 4 microbatches, bf16) on a one-rank mesh beside one
              real step after a warm-up one: the predicted arguments +
              temporaries within 25% of the step's peak allocation, and
-             the roofline step no longer than the measured one. The train
-             cells trace the tensor-parallel step (``"model": "tp"``),
-             the serving cells the replicated one. Then the
+             the roofline step no longer than the measured one. Every
+             cell traces the tensor-parallel step (``"model": "tp"``),
+             serving too. Then the
              tensor-parallel yardstick: ``analyze_step`` for rank 0 of a
              (1, 4) ("data", "model") mesh in a fake world of 4 ranks
              (``cuda`` on the fake backend) at the same cut beside that
@@ -97,7 +101,17 @@ Phases, in order; any failed check raises and the script exits nonzero:
              ranks and gathered a layer at a time in bf16 (forward and
              remat), its gradient reduce-scattered when the layer's
              backward ends; its step ms and card peak on a line of their
-             own.
+             own. Last, the serving yardstick: ``analyze_step`` of the
+             serving prefill and decode for rank 0 of a (1, 4) mesh
+             (tinyllama-1.1b at full width and depth, phase 9's batch 8 x
+             prompt 2048, 8 decode steps over ``model``: 8 q heads and 1
+             kv head a rank, a quarter of the cache's positions) beside
+             that rank's own serving on the card: local leaves as their
+             stand-ins, the prefill's predicted bytes within 25% of its
+             peak, its roofline compute and memory terms no longer than
+             the measured prefill, the wgmma flash kernel once a layer in
+             prefill (as analysed) and no kernel in decode; its prefill
+             ms and decode ms a token printed.
 5. checkpointers — the training CLI (``repro_torch.launch.train.run``)
              at full width, ``--freq 1``, 5 steps, once per checkpointer:
              none; checkmate (2 async nodes, lag bound 2); checkmate
@@ -241,7 +255,9 @@ launches), ``flash_q_offset`` (llama3.2-3b's last sequence-sharded rows,
 beside SDPA with the bottom-right mask), ``flash_ep_rank`` (an
 expert-parallel arctic rank's heads, with one step of phase 4c's
 launches), ``flash_fsdp_rank`` (an FSDP arctic rank's, with one step of
-the FSDP yardstick's launches) and ``pack_host`` timing lines, a ``kernels`` JSON line,
+the FSDP yardstick's launches), ``flash_tp_serve_rank`` (a
+tensor-parallel serving rank's prefill, with the serving yardstick's
+launches) and ``pack_host`` timing lines, a ``kernels`` JSON line,
 a ``checkpointers`` JSON line, a ``durability`` JSON line, a ``harness``
 JSON line, a ``families`` JSON line, a ``serving`` JSON line, a
 ``benchmarks`` JSON line (each twin's CSV rows, seconds, launches and
@@ -510,6 +526,9 @@ def flash_cases() -> tuple[list, int]:
               for c in attention_shapes(rank_local(cut, mesh), seq,
                                         batch // mesh[0]
                                         // cut.microbatches)]
+    cut, b, prompt, _, mesh = serve_yard_cell()
+    cases += list(attention_shapes(rank_local(cut, mesh), prompt,
+                                   b // mesh[0]))
     family = family_flash_cases()
     return cases + family, len(family)
 
@@ -739,6 +758,13 @@ def time_kernels(dev, cfg, errs: dict) -> tuple[list[dict], dict, dict]:
     extra["flash_fsdp_rank"] = flash_row(
         dev, gen, (bsz // mesh[0] // cut.microbatches, sq, cut.num_heads,
                    cut.num_kv_heads, cut.head_dim), torch.bfloat16, errs)
+    # a tensor-parallel serving rank's prefill: tinyllama's heads a rank
+    # of phase 4c's (1, 4) mesh, the dense serving run's batch
+    cut, bsz, prompt, _, mesh = serve_yard_cell()
+    loc = rank_local(cut, mesh)
+    extra["flash_tp_serve_rank"] = flash_row(
+        dev, gen, (bsz // mesh[0], prompt, loc.num_heads, loc.num_kv_heads,
+                   loc.head_dim), torch.bfloat16, errs)
     for r in rows + list(extra.values()):
         r["route"] = "cuda"
         by = ", ".join(filter(None, (r["bound_by"], r.get("bound_unit"))))
@@ -1067,6 +1093,47 @@ def identity_at_model_one(mesh, cfg):
           is None, "ranks: a context at model extent 1")
 
 
+def serving_at_model_one(mesh, cut) -> dict:
+    """Serving under the rules of the one-rank mesh bitwise serving with
+    no rules: phase 9's dense batch and prompt at ``cut``'s depth, then
+    SERVE_YARD_STEPS greedy decode steps through ``build_decode_step``;
+    the prefill logits, every token and the cache equal bit for bit (at
+    model extent 1 serving takes no context and calls no collective)."""
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.launch.serve import max_seq_for
+    from repro_torch.models import registry
+    from repro_torch.train.step import build_decode_step, serving_params
+    _, _, b, prompt, _ = SERVE_DENSE
+    rules = ShardingRules(mesh)
+    check(registry.serving_tp(cut, rules) is None,
+          "ranks: a serving context at model extent 1")
+    max_seq = max_seq_for(cut, prompt, SERVE_YARD_STEPS)
+    full = registry.init_params(cut, 0, "cuda")
+    toks, _ = serve_inputs(cut, b, prompt, torch.bfloat16, "cuda")
+    runs = {}
+    for label, r in (("rules", rules), ("plain", None)):
+        params = serving_params(cut, full, r)
+        cache, logits = registry.prefill(params, cut, toks, max_seq, rules=r)
+        tok = registry.greedy_token(cut, logits, r)
+        out, step = [tok], build_decode_step(cut, r)
+        for _ in range(SERVE_YARD_STEPS):
+            tok, cache = step(params, cache, tok)
+            out.append(tok)
+        runs[label] = (logits, cache, torch.cat(out, dim=1))
+        del params
+    (la, ca, ta), (lb, cb, tb) = runs["rules"], runs["plain"]
+    check(torch.equal(la, lb) and torch.equal(ta, tb)
+          and set(ca) == set(cb) and ca["length"] == cb["length"] == max_seq
+          and torch.equal(ca["k"], cb["k"]) and torch.equal(ca["v"], cb["v"]),
+          "ranks: serving on the one-rank mesh differs from serving with no "
+          "rules")
+    del runs, full
+    _free()
+    return {"layers": cut.num_layers, "batch": b, "prompt": prompt,
+            "decode_steps": SERVE_YARD_STEPS, "bitwise_equal": True,
+            "sample_tokens": ta[0].tolist()}
+
+
 def phase_ranks(cfg) -> dict:
     import shutil
     import tempfile
@@ -1088,6 +1155,7 @@ def phase_ranks(cfg) -> dict:
               and mesh.coords == {"data": 0, "model": 0},
               f"ranks: mesh {mesh} at {mesh.coords}")
         identity_at_model_one(mesh, cut)
+        serve_one = serving_at_model_one(mesh, cut)
         for label, kw in (("rules", {"rules": ShardingRules(mesh)}),
                           ("plain", {})):
             _free()
@@ -1139,12 +1207,15 @@ def phase_ranks(cfg) -> dict:
            "step_ms": {k: r["stats"].steady_iter * 1e3
                        for k, r in runs.items()},
            "launches": {k: r["launches"] for k, r in runs.items()},
-           "bitwise_equal": True, "card": card_name_power()}
+           "bitwise_equal": True, "serving_at_model_one": serve_one,
+           "card": card_name_power()}
     print(f"ranks: one-rank NCCL train(rules=) vs train(), {cut.name} "
           f"{cut.num_layers}L: step {out['step_ms']['rules']:.2f} vs "
           f"{out['step_ms']['plain']:.2f} ms, launches {out['launches']}, "
-          f"losses, states and checkpoints bitwise equal; {out['card']}",
-          flush=True)
+          f"losses, states and checkpoints bitwise equal; serving on the "
+          f"(1, 1) mesh ({serve_one['batch']} x {serve_one['prompt']} + "
+          f"{serve_one['decode_steps']}) bitwise serving with no rules; "
+          f"{out['card']}", flush=True)
     return out
 
 
@@ -1420,6 +1491,157 @@ def _print_rank_yardstick(kind: str, label: str, tp: dict,
           f"{tp['seconds']:.1f} s in all; {card_name_power()}", flush=True)
 
 
+# the serving rank yardstick: rank 0 of a fake TP_YARD_MESH world serving
+# phase 9's dense run (SERVE_DENSE: tinyllama-1.1b at full width and
+# depth, batch 8 x prompt 2048) through prefill and SERVE_YARD_STEPS greedy
+# decode steps over model (8 q heads and 1 kv head a rank)
+SERVE_YARD_STEPS = 8
+
+
+def serve_yard_cell() -> tuple:
+    """(config, batch, prompt, decode steps, mesh) of the serving
+    yardstick."""
+    from repro_torch import configs
+    arch, over, b, prompt, _ = SERVE_DENSE
+    return (dataclasses.replace(configs.get(arch), **over), b, prompt,
+            SERVE_YARD_STEPS, TP_YARD_MESH)
+
+
+def serve_yardstick() -> dict:
+    """`analyze_step` of the serving prefill and decode steps for rank 0
+    of a (1, 4) mesh in a fake world of 4 ranks beside that rank's own
+    serving on the card (its weight slices cast as ``serving_params``
+    casts them, its block of the cache; the fake collectives move
+    nothing, so values are not checked): every local leaf the shape and
+    dtype of its stand-in, the prefill's predicted arguments +
+    temporaries within DRYRUN_MEMORY_RTOL of its peak allocation, the
+    prefill's roofline compute and memory terms no longer than the
+    measured prefill, the wgmma flash kernel once a layer in prefill (as
+    the analysis counts it) and no kernel in decode; the prefill's ms and
+    each decode step's."""
+    from repro_torch.dist.sharding import Mesh, ShardingRules
+    from repro_torch.kernels import ops
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.launch.roofline import Roofline, model_flops_for
+    from repro_torch.launch.serve import max_seq_for
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models import registry
+    from repro_torch.train.step import build_decode_step, serving_params
+    t_start = time.perf_counter()
+    cfg, b, prompt, steps, mesh = serve_yard_cell()
+    max_seq = max_seq_for(cfg, prompt, steps)
+    names = ("data", "model")
+    with fake_world(math.prod(mesh)):
+        rules = ShardingRules(Mesh.over_ranks(mesh, names, device="cpu"))
+        stand_in = serving_params(cfg, registry.abstract_params(cfg, rules))
+        meta_tokens = torch.empty((b // mesh[0], prompt), dtype=torch.int64,
+                                  device="meta")
+        pre = analyze_step(
+            lambda p, t: registry.prefill(p, cfg, t, max_seq, rules=rules),
+            stand_in, meta_tokens)
+        dec = analyze_step(build_decode_step(cfg, rules), stand_in,
+                           registry.abstract_cache(cfg, rules, b, max_seq),
+                           meta_tokens[:, :1])
+        for a in (pre, dec):
+            del a["result"]
+        rf = Roofline(
+            arch=cfg.name, shape="serve-rank prefill",
+            mesh=f"{mesh[0]}x{mesh[1]} rank 0", chips=math.prod(mesh),
+            flops_per_device=pre["flops_per_device"],
+            bytes_per_device=pre["bytes_per_device"],
+            collective_bytes_per_device=pre["collective_bytes_per_device"],
+            model_flops=model_flops_for(cfg, ShapeConfig(
+                "serve-rank", prompt, b, "prefill")),
+            per_collective=pre["per_collective"])
+        predicted = (pre["memory"]["argument_bytes"]
+                     + pre["memory"]["temp_bytes"])
+
+        card = ShardingRules(Mesh.over_ranks(mesh, names))
+        _free()
+        base = torch.cuda.memory_allocated()
+        full = registry.init_params(cfg, 0, "cuda")
+        params = serving_params(cfg, full, card)
+        del full
+        _free()
+        for k, t in params.items():
+            check(t.shape == stand_in[k].shape
+                  and t.dtype == stand_in[k].dtype,
+                  f"dryrun: serving {k} {tuple(t.shape)} {t.dtype} on the "
+                  f"card, {tuple(stand_in[k].shape)} {stand_in[k].dtype} "
+                  f"traced")
+        toks, _ = serve_inputs(cfg, b // mesh[0], prompt, torch.bfloat16,
+                               "cuda")
+        out = registry.prefill(params, cfg, toks, max_seq, rules=card)
+        del out                             # warm-up
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        cache, logits = registry.prefill(params, cfg, toks, max_seq,
+                                         rules=card)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        prefill_launches = ops.launch_counts()
+        decode = build_decode_step(cfg, card)
+        tok = registry.greedy_token(cfg, logits, card)
+        ops.reset_launch_counts()
+        step_ms = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            tok, cache = decode(params, cache, tok)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        decode_launches = ops.launch_counts()
+        length = cache["length"]
+        del params, cache, logits, tok, toks, decode
+        _free()
+    err = predicted / peak - 1.0
+    local_s = max(rf.compute_s, rf.memory_s)
+    check(prefill_launches["flash_attention_wgmma"] == cfg.num_layers
+          == pre["kernels"]["flash_attention"]["calls"]
+          and prefill_launches["flash_attention_mma"] == 0,
+          f"dryrun: serving yardstick prefill launched {prefill_launches}, "
+          f"the analysis recorded {pre['kernels']} (flash {cfg.num_layers})")
+    check(all(n == 0 for n in decode_launches.values())
+          and "flash_attention" not in dec["kernels"],
+          f"dryrun: serving yardstick decode launched {decode_launches}, "
+          f"the analysis recorded {dec['kernels']}")
+    check(length == max_seq, f"dryrun: serving yardstick cache length "
+                             f"{length}, not {max_seq}")
+    check(abs(err) <= DRYRUN_MEMORY_RTOL,
+          f"dryrun: serving yardstick predicted {predicted} bytes vs the "
+          f"card's peak {peak} ({err:+.1%}; tolerance "
+          f"{DRYRUN_MEMORY_RTOL:.0%})")
+    check(local_s <= prefill_s,
+          f"dryrun: serving yardstick roofline {local_s * 1e3:.2f} ms "
+          f"(compute and memory) beats the measured prefill "
+          f"{prefill_s * 1e3:.2f} ms")
+    return {"model": cfg.name, "layers": cfg.num_layers, "mesh": list(mesh),
+            "batch": b, "prompt": prompt, "decode_steps": steps,
+            "max_seq": max_seq, "predicted_bytes": predicted,
+            "memory": pre["memory"], "peak_bytes": peak, "memory_err": err,
+            "flops": pre["flops_per_device"],
+            "bytes": pre["bytes_per_device"],
+            "collective_bytes": pre["collective_bytes_per_device"],
+            "per_collective": pre["per_collective"],
+            "decode_analysis": {k: dec[k] for k in (
+                "flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device", "per_collective", "memory")},
+            "roofline": {k: v for k, v in rf.row().items()
+                         if k in ("compute_s", "memory_s", "collective_s",
+                                  "bound", "step_time_s")},
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_token": statistics.median(step_ms[1:]),
+            "decode_ms_each": step_ms,
+            "prefill_launches": prefill_launches,
+            "decode_launches": decode_launches,
+            "local_roofline_share": local_s / prefill_s,
+            "seconds": time.perf_counter() - t_start}
+
+
 def phase_dryrun(cfg) -> dict:
     """The port's dry run of DRYRUN_ARCH on the two production meshes, a
     subprocess each, while the yardstick runs on the card; every traced
@@ -1437,6 +1659,7 @@ def phase_dryrun(cfg) -> dict:
         tp = rank_yardstick("tinyllama")
         ep = rank_yardstick("arctic")
         fs = rank_yardstick("fsdp")
+        sv = serve_yardstick()
         for out, proc in procs.items():
             log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
             check(proc.returncode == 0,
@@ -1459,8 +1682,7 @@ def phase_dryrun(cfg) -> dict:
         if r["shape"] == "train_4k":
             check(r["collective_s"] > 0 and r["per_collective"]["send"] > 0,
                   f"dryrun: {key}: no collective bytes")
-        check(r["model"] == ("tp" if r["shape"] == "train_4k"
-                             else "replicated"),
+        check(r["model"] == "tp",
               f"dryrun: {key}: model layout {r['model']}")
         cells[key] = {"model": r["model"],
                       "compute_s": r["compute_s"], "memory_s": r["memory_s"],
@@ -1498,10 +1720,23 @@ def phase_dryrun(cfg) -> dict:
     print(f"dryrun: FSDP yardstick step {fs['step_ms']:.2f} ms, card peak "
           f"{fs['peak_bytes'] / 1e9:.3f} GB; {card_name_power()}",
           flush=True)
+    print(f"dryrun: serving yardstick ({sv['model']}), rank 0 of "
+          f"{sv['mesh']}, {sv['layers']} layers, {sv['batch']} x "
+          f"{sv['prompt']} + {sv['decode_steps']}: prefill predicted "
+          f"{sv['predicted_bytes'] / 1e9:.3f} GB, card peak "
+          f"{sv['peak_bytes'] / 1e9:.3f} GB ({sv['memory_err']:+.1%}); "
+          f"roofline compute {sv['roofline']['compute_s'] * 1e3:.2f} ms, "
+          f"memory {sv['roofline']['memory_s'] * 1e3:.2f} ms, collective "
+          f"{sv['roofline']['collective_s'] * 1e3:.2f} ms (not run); "
+          f"measured prefill {sv['prefill_ms']:.2f} ms, decode "
+          f"{sv['decode_ms_per_token']:.3f} ms a token (median after the "
+          f"first); prefill launches {sv['prefill_launches']}, decode "
+          f"{sv['decode_launches']}; {sv['seconds']:.1f} s in all; "
+          f"{card_name_power()}", flush=True)
     return {"arch": DRYRUN_ARCH, "cells": cells,
             "multi_over_single_flops": half, "yardstick": yard,
             "tp_yardstick": tp, "ep_yardstick": ep, "fsdp_yardstick": fs,
-            "card": card_name_power()}
+            "serve_yardstick": sv, "card": card_name_power()}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -3428,6 +3663,10 @@ def main():
         dryrun["ep_yardstick"]["launches"]["flash_attention_wgmma"]
     flash_extra["flash_fsdp_rank"]["launches"] = \
         dryrun["fsdp_yardstick"]["launches"]["flash_attention_wgmma"]
+    # the tensor-parallel serving rank's row: phase 4c's serving
+    # yardstick's prefill
+    flash_extra["flash_tp_serve_rank"]["launches"] = \
+        dryrun["serve_yardstick"]["prefill_launches"]["flash_attention_wgmma"]
     print(f"timing: seconds by phase {secs}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -34,6 +34,11 @@ target logit over the group. `context` is None where there is nothing to
 split (no rules, or a ``model`` extent of 1): the layers then run their
 plain code and call no collective. Each Function is the identity on a
 group of one rank, and calls no collective there either.
+
+Serving adds two pieces (no gradient): `flash_decode_combine` joins the
+decode attention's per-rank partials over a KV cache cut on ``kv_seq``
+(each rank holds a contiguous block of positions), and `vocab_argmax`
+is the greedy token of vocab-parallel logits.
 """
 from __future__ import annotations
 
@@ -188,3 +193,45 @@ def vocab_xent(logits, labels, tp):
     ll = torch.gather(logits, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
     ll = reduce_from_model(ll.masked_fill(~inside, 0), tp)
     return torch.mean(mx + torch.log(sumexp) - ll)
+
+
+def flash_decode_combine(m, l, o, tp):
+    """The attention output from per-part partials of a softmax over
+    disjoint blocks of positions (the flash-decode combine): ``m`` the
+    block's row max, ``l`` its sum of ``exp(s - m)``, ``o`` (``m``'s shape
+    and one more dim) its unnormalised ``p @ v``, all f32. The parts are
+    the ranks of ``tp``'s group (one all-reduce MAX of ``m`` and one sum
+    all-reduce of ``exp(m - M) * l`` and ``exp(m - M) * o`` together), or,
+    with ``tp`` None, stacked along dim 0 in this process. A part whose
+    block is wholly masked holds ``m`` at the layers' finite ``_NEG``, so
+    its factor ``exp(m - M)`` is exactly 0 and it adds nothing. Returns
+    the f32 output."""
+    if tp is None:
+        mx = m.amax(dim=0)
+    else:
+        mx = _all_reduce(m, tp, dist.ReduceOp.MAX)
+    a = torch.exp(m - mx)
+    part = torch.cat([(a * l)[..., None], a[..., None] * o], dim=-1)
+    tot = part.sum(dim=0) if tp is None else _all_reduce(part, tp)
+    return tot[..., 1:] / tot[..., :1]
+
+
+def vocab_argmax(logits, tp):
+    """The index of the first maximum along the last dim of logits whose
+    last dim is this rank's block of the vocab (``jnp.argmax``'s tie rule:
+    the lowest global index): the blocks gathered over the group in rank
+    order, then ``torch.argmax``. ``tp`` None: the logits are whole."""
+    if tp is not None:
+        logits = _all_gather(logits, -1 % logits.dim(), tp)
+    return torch.argmax(logits, dim=-1)
+
+
+def gather_columns(parts: list, tp) -> list:
+    """Each rank's columns of several tensors (the last dims of ``parts``,
+    equal leading dims) joined in rank order, in one all-gather: the
+    tensors whole on every rank. No gradient."""
+    sizes = [t.shape[-1] for t in parts]
+    buf = torch.cat(parts, dim=-1)
+    out = _all_gather(buf[None], 0, tp)               # (m, ..., sum)
+    return [torch.cat(list(piece.unbind(0)), dim=-1)
+            for piece in out.split(sizes, dim=-1)]

@@ -25,25 +25,28 @@ nothing is lowered or compiled. Results are appended to ``--out`` after
 every cell, so an interrupted run resumes where it stopped. There is no
 ``--save-hlo``: there is no HLO.
 
-A train cell of a tensor-parallel family (dense, moe, vlm:
-`registry.TENSOR_PARALLEL`) traces the tensor-parallel step: rank 0
-holds its ``1/16`` of every leaf the spec cuts over ``model`` (moe: its
-16th of the experts) and computes the layers' share those leaves carry
-(``"model": "tp"`` in the record). Its layers' work is not the same on
-every model rank (the sequence-sharded attention gives a later rank's
-query rows more causal pairs), so the cell is traced a second time, for
-the last model rank of the first dp group (`last_model_rank`), and each
-term of the record is the larger of the two ranks'. Every other
-family's train cells, and every serving cell, keep each layer whole on
-every rank of a ``model`` group (``"model": "replicated"``): there
-``flops_per_device``, ``bytes_per_device_hbm``
-and ``useful_flops_ratio`` are the port's own, up to 16 times the
-reference's where the model axis would cut. A serving cell holds whole
-weights on every rank (the port's serving steps gather no FSDP slice),
-so its params are traced with FSDP off; its rows are cut over the dp
-ranks as the reference's are. The optimizer is the default AdamW without a clip: a
-clip reads the gradient norm back to the host, which a meta tensor
-cannot give.
+Every cell of a tensor-parallel family (dense, moe, vlm:
+`registry.TENSOR_PARALLEL`) traces the tensor-parallel step under
+``ShardingRules(mesh, fsdp=cfg.fsdp)``, as the reference's dry run does:
+rank 0 holds its ``1/16`` of every leaf the spec cuts over ``model``
+(moe: its 16th of the experts), and under FSDP its ``wemb`` slices,
+gathered where they are read, and computes the layers' share those
+leaves carry (``"model": "tp"`` in the record); a serving cell's cache is
+cut on ``kv_seq`` over ``model``. Its work is not the same on every model
+rank (the sequence-sharded attention gives a later rank's query rows
+more causal pairs; the decode's one write, at the last position, falls
+in the last model rank's cache block), so the cell is traced a second
+time, for the last model rank of the first dp group
+(`last_model_rank`), and each term of the record is the larger of the
+two ranks'. Every other family's cells keep each layer whole on every
+rank of a ``model`` group (``"model": "replicated"``): there
+``flops_per_device``, ``bytes_per_device_hbm`` and
+``useful_flops_ratio`` are the port's own, up to 16 times the
+reference's where the model axis would cut; its serving cells hold whole
+weights, traced with FSDP off. Every cell's rows are cut over the dp
+ranks as the reference's are. The optimizer is the default AdamW without
+a clip: a clip reads the gradient norm back to the host, which a meta
+tensor cannot give.
 """
 from __future__ import annotations
 
@@ -90,17 +93,18 @@ def trace_rank(cfg, shape, multi_pod: bool, rank: int = 0) -> dict:
             summary = analyze_step(step, abstract_train_state(cfg, rules),
                                    registry.input_specs(cfg, shape, rules))
         else:
-            rules = ShardingRules(mesh)
-            params = registry.abstract_params(cfg, rules, serving=True)
+            rules = ShardingRules(mesh, fsdp=cfg.fsdp
+                                  and registry.tensor_parallel(cfg))
+            params = registry.abstract_params(cfg, rules)
             inputs = registry.input_specs(cfg, shape, rules)
             if shape.kind == "prefill":
-                summary = analyze_step(build_prefill_step(cfg, shape),
+                summary = analyze_step(build_prefill_step(cfg, shape, rules),
                                        params, inputs)
             else:
                 cache = registry.abstract_cache(cfg, rules,
                                                 shape.global_batch,
                                                 shape.seq_len)
-                summary = analyze_step(build_decode_step(cfg), params,
+                summary = analyze_step(build_decode_step(cfg, rules), params,
                                        cache, inputs["token"])
         summary["trace_s"] = time.time() - t0
     del summary["result"]
@@ -119,11 +123,12 @@ def _larger(a, b):
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                microbatches=None) -> dict:
     """Trace one cell's step for rank 0 of the production mesh and, for a
-    tensor-parallel train cell, for the last model rank of the first dp
-    group too (the sequence-sharded attention gives the later model
-    ranks more causal pairs), each term the larger of the two; returns
-    the result record (``trace_s`` the two traces' seconds summed). Each
-    trace sets up its own fake world, so none may be up."""
+    tensor-parallel family's cell, for the last model rank of the first
+    dp group too (the sequence-sharded attention gives the later model
+    ranks more causal pairs; the decode writes in the last rank's cache
+    block), each term the larger of the two; returns the result record
+    (``trace_s`` the two traces' seconds summed). Each trace sets up its
+    own fake world, so none may be up."""
     cfg = C.get(arch)
     if microbatches is not None:
         cfg = dataclasses.replace(cfg, microbatches=microbatches)
@@ -134,7 +139,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": why}
 
-    tp = shape.kind == "train" and registry.tensor_parallel(cfg)
+    tp = registry.tensor_parallel(cfg)
     summary = trace_rank(cfg, shape, multi_pod)
     trace_s = summary["trace_s"]
     if tp:

@@ -16,15 +16,20 @@ reference's, ``--mesh {smoke,single,multi}`` included, and ``--device
 ``--mesh smoke`` (the default) serves every row in one process.
 ``single`` and ``multi`` serve over the production mesh
 (`launch.mesh.make_production_mesh`: 256 or 512 ranks, one process per
-rank, as ``torchrun`` starts them): each dp rank prefills and decodes its
-own contiguous rows of the batch, the reference's row order (the batch
-must divide over the dp ranks); weights stay whole on every rank; global
-rank 0 gathers the tokens over its dp ranks and prints the report, and
-its times are rank 0's. In a world of another size (one process) they
-raise the mesh's ``ValueError``. A vlm's cache holds the
-patches too: ``num_patches + prompt_len + gen`` positions, where the
-reference sizes it ``prompt_len + gen`` and so cannot serve a vlm. The
-clock is read after a device synchronisation each time.
+rank, as ``torchrun`` starts them) under ``ShardingRules(mesh,
+fsdp=cfg.fsdp)``: each dp rank prefills and decodes its own contiguous
+rows of the batch, the reference's row order (the batch must divide over
+the dp ranks), and the ranks of its model group share those rows. A
+tensor-parallel family (dense, moe, vlm) serves over ``model``: each rank
+holds its slices of the weights (FSDP's gathered a layer at a time) and
+its block of the cache's positions (`repro_torch.models.registry`); the
+other families hold whole weights on every rank. Every rank gathers the
+tokens over its dp ranks; global rank 0 prints the report, and its times
+are rank 0's. In a world of another size (one process) they raise the
+mesh's ``ValueError``. A vlm's cache holds the patches too:
+``num_patches + prompt_len + gen`` positions, where the reference sizes it
+``prompt_len + gen`` and so cannot serve a vlm. The clock is read after a
+device synchronisation each time.
 """
 from __future__ import annotations
 
@@ -71,7 +76,7 @@ def run(args: argparse.Namespace) -> dict:
     if args.mesh != "smoke":
         join_world(device)
         rules = ShardingRules(make_production_mesh(
-            multi_pod=args.mesh == "multi", device=device))
+            multi_pod=args.mesh == "multi", device=device), fsdp=cfg.fsdp)
     out, t_prefill, t_decode = generate(cfg, args, device, rules)
     if rules is not None and dist.get_rank() != 0:
         return None
@@ -91,7 +96,8 @@ def generate(cfg, args: argparse.Namespace, device, rules=None) -> tuple:
     (batch, gen), prefill seconds, decode seconds). With ``rules`` over
     more than one dp rank this rank serves its rows (``rules.shard`` of
     every input over "batch") and the tokens are gathered over the dp
-    ranks, row order kept, on every rank."""
+    ranks, row order kept, on every rank; over ``model`` it serves from
+    its slices of the weights (`train.step.serving_params`)."""
     import numpy as np
     import torch
 
@@ -114,7 +120,8 @@ def generate(cfg, args: argparse.Namespace, device, rules=None) -> tuple:
         return time.perf_counter()
 
     rng = np.random.default_rng(args.seed)
-    params = serving_params(cfg, registry.init_params(cfg, args.seed, device))
+    params = serving_params(cfg, registry.init_params(cfg, args.seed, device),
+                            rules)
     tokens = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
         dtype=torch.int64, device=device)
@@ -133,11 +140,11 @@ def generate(cfg, args: argparse.Namespace, device, rules=None) -> tuple:
     t0 = clock()
     cache, logits = registry.prefill(
         params, cfg, tokens, max_seq_for(cfg, args.prompt_len, args.gen),
-        **extra)
+        rules=rules, **extra)
     t_prefill = clock() - t0
 
-    decode = build_decode_step(cfg)
-    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    decode = build_decode_step(cfg, rules)
+    tok = registry.greedy_token(cfg, logits, rules)
     generated = [tok]
     t0 = clock()
     for _ in range(args.gen - 1):

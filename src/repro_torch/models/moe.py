@@ -42,7 +42,10 @@ gradient is whole on every rank already). Where E does not divide m the
 experts are whole and the layer calls no collective. The reference's
 compiled step re-aligns the capacity buffer with an all-to-all; this form
 has none, and matches the reference's numbers, not XLA's choice of
-collective. Serving is whole over ``model``.
+collective. Serving under such ``rules`` runs the same layers over
+``model`` (the attention and the cache as the dense family's, the
+experts and the dense residual as in training), each dp rank's tokens
+one group against its own capacity, as the reference groups them.
 """
 from __future__ import annotations
 
@@ -234,29 +237,36 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     return T.cache_specs(cfg, batch, max_seq)
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int):
+def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int,
+            rules=None):
+    """The prompt's cache and last logits; under ``rules`` with a
+    ``model`` extent above 1, tensor-parallel (the module docstring)."""
     cd = TORCH_DTYPES[cfg.compute_dtype]
     b, s = tokens.shape
-    x = L.embed_tokens(params["embed"], tokens, cd)
+    tp = TP.context(rules, param_specs(cfg))
+    group = rules if tp is not None else None
+    x = L.embed_tokens(params["embed"], tokens, cd, T.vocab_tp(tp))
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    ks, vs = [], []
-    for lp in T.layers_of(_stacked(params, cfg)):
-        x, (k, v) = T.attn_block(x, lp, cfg, positions, prefill=True)
-        x, _ = moe_mlp(x, lp, cfg)
-        ks.append(k)
-        vs.append(v)
-    cache = {"k": T.stack_padded(ks, max_seq),
-             "v": T.stack_padded(vs, max_seq), "length": s}
-    return cache, T.final_logits(x[:, -1:], params, cfg)
+    fill = T.PrefillCache(x, cfg, max_seq, rules, tp)
+    for lp in T.serving_layers(_stacked(params, cfg)):
+        x, (k, v) = T.attn_block(x, lp, cfg, positions, prefill=True, tp=tp)
+        x, _ = moe_mlp(x, lp, cfg, group, tp)
+        fill.add(k, v)
+    return fill.cache(), T.final_logits(x[:, -1:], params, cfg, tp)
 
 
-def decode_step(params: dict, cfg: ModelConfig, cache: dict, token):
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, token,
+                rules=None):
     """One token for each of the b rows: the experts route b tokens, so
     their capacity is ``capacity(cfg, b)`` (at least 4)."""
+    tp = TP.context(rules, param_specs(cfg))
+    group = rules if tp is not None else None
     pos = cache["length"]
     x = L.embed_tokens(params["embed"], token,
-                       TORCH_DTYPES[cfg.compute_dtype])
-    for i, lp in enumerate(T.layers_of(_stacked(params, cfg))):
-        x = T.decode_attn(x, lp, cache["k"][i], cache["v"][i], pos, cfg)
-        x, _ = moe_mlp(x, lp, cfg)
-    return T.final_logits(x, params, cfg), dict(cache, length=pos + 1)
+                       TORCH_DTYPES[cfg.compute_dtype], T.vocab_tp(tp))
+    first = T.cache_first(cache, tp)
+    for i, lp in enumerate(T.serving_layers(_stacked(params, cfg))):
+        x = T.decode_attn(x, lp, cache["k"][i], cache["v"][i], pos, cfg, tp,
+                          first)
+        x, _ = moe_mlp(x, lp, cfg, group, tp)
+    return T.final_logits(x, params, cfg, tp), dict(cache, length=pos + 1)

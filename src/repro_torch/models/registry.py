@@ -4,24 +4,33 @@ counts, init and loss of all seven families, and the serving entry points
 
 Prefill and decode run under ``torch.inference_mode``. ``vit`` has no
 serving path, as in the JAX package: asking it for one raises
-``AttributeError``, as the reference's missing functions do.
+``AttributeError``, as the reference's missing functions do. Under
+``rules`` whose ``model`` extent is above 1, a tensor-parallel family
+(`TENSOR_PARALLEL`) serves over ``model`` from this rank's slices of the
+params (`serving_shardings`; the FSDP leaves' ``wemb`` slices gathered
+where they are read: a stacked one a layer at a time, any other once a
+call) and a cache cut on ``kv_seq``; its logits are this rank's vocab
+columns where the vocab is cut (`greedy_token` takes the argmax). Every
+other family, and every family with no rules or ``model`` of extent 1,
+serves each layer whole.
 
 ``abstract_params``, ``abstract_cache`` and ``input_specs`` are the
 stand-ins the dry run (`repro_torch.launch.dryrun`) traces a step on, the
 port of the reference's ``ShapeDtypeStruct`` ones: tensors on the
 ``meta`` device (a shape and a dtype, no data) at the shape this rank
 holds under ``rules`` (``rules.sharding(...).local_shape``: dims mapped to
-dp axes cut; ``model``-mapped dims cut for the training leaves of a
-tensor-parallel family (`TENSOR_PARALLEL`: dense, moe, vlm), whole for the
-ssm, hybrid, audio and vit families and for serving, as the port's layers
-compute them). Two differences from the reference's: integer inputs are int64,
-the port's index type (the reference's are int32), and a cache's
-``length`` is the host int the port's decode reads, set to the last
-position so that one decode step fits (the reference's is an int32
-scalar).
+dp axes cut; ``model``-mapped dims cut for the leaves and caches of a
+tensor-parallel family, whole for the ssm, hybrid, audio and vit
+families, as the port's layers compute them). Three differences from the
+reference's: integer inputs are int64, the port's index type (the
+reference's are int32); a cache's ``length`` is the host int the port's
+decode reads, set to the last position so that one decode step fits (the
+reference's is an int32 scalar); and a cache served over ``model`` keeps
+``max_seq``, a host int.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 
 import torch
@@ -29,7 +38,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.buckets import TORCH_DTYPES
 from repro_torch.device import resolve
+from repro_torch.dist import tensor_parallel as TP
+from repro_torch.dist.sharding import fsdp_gather, gather_per_layer
 from repro_torch.models import common
+from repro_torch.models.transformer import vocab_tp
 
 _FAMILIES = {
     "dense": "repro_torch.models.transformer",
@@ -42,15 +54,15 @@ _FAMILIES = {
 }
 
 
-# the families whose training layers run tensor-parallel over ``model``
-# (`repro_torch.dist.tensor_parallel`; moe's experts cut over it too); the
-# ssm, hybrid, audio and vit families, and serving, compute each layer
+# the families whose layers run tensor-parallel over ``model`` in training
+# and serving (`repro_torch.dist.tensor_parallel`; moe's experts cut over
+# it too); the ssm, hybrid, audio and vit families compute each layer
 # whole on every rank of a model group
 TENSOR_PARALLEL = frozenset({"dense", "moe", "vlm"})
 
 
 def tensor_parallel(cfg: ModelConfig) -> bool:
-    """Whether ``cfg``'s training step cuts its leaves over ``model``."""
+    """Whether ``cfg``'s steps cut its leaves over ``model``."""
     return cfg.family in TENSOR_PARALLEL
 
 
@@ -82,12 +94,12 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, rules=None):
     return family_module(cfg).loss_fn(params, cfg, batch)
 
 
-def abstract_params(cfg: ModelConfig, rules, serving: bool = False) -> dict:
+def abstract_params(cfg: ModelConfig, rules) -> dict:
     """Every param leaf as a meta tensor of its dtype at this rank's local
-    shape under ``rules``: cut over ``model`` for training a
-    tensor-parallel family, whole over it for ``serving``."""
-    return _abstract(param_specs(cfg), rules,
-                     model=tensor_parallel(cfg) and not serving)
+    shape under ``rules``, for training and serving alike: cut over
+    ``model`` for a tensor-parallel family, whole over it for the
+    others."""
+    return _abstract(param_specs(cfg), rules, model=tensor_parallel(cfg))
 
 
 def _abstract(specs: dict, rules, model: bool) -> dict:
@@ -115,24 +127,61 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     return _serving(cfg, "cache_specs")(cfg, batch, max_seq)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device=None) -> dict:
-    """An empty cache: every leaf zero, ``length`` 0."""
-    device = resolve(device)
-    cache = {name: torch.zeros(spec.shape, dtype=TORCH_DTYPES[spec.dtype],
-                               device=device)
-             for name, spec in cache_specs(cfg, batch, max_seq).items()}
-    cache["length"] = 0
+def serving_tp(cfg: ModelConfig, rules):
+    """The `tensor_parallel.ModelParallel` ``cfg``'s serving runs under
+    ``rules``: None for a family that serves each layer whole, and where
+    there are no rules or ``model`` has extent 1."""
+    if rules is None or not tensor_parallel(cfg):
+        return None
+    return TP.context(rules, param_specs(cfg))
+
+
+def serving_shardings(cfg: ModelConfig, rules):
+    """``{name: NamedSharding}`` of the params ``cfg``'s serving reads
+    under ``rules`` (cut over ``model`` as the specs cut them, and a
+    ``wemb`` dim over the dp axes under FSDP), or None where serving
+    holds every leaf whole (`serving_tp` None)."""
+    if serving_tp(cfg, rules) is None:
+        return None
+    return {k: rules.sharding(*ps.logical, dims=ps.shape)
+            for k, ps in param_specs(cfg).items()}
+
+
+def _cache_meta(cache: dict, cfg: ModelConfig, rules, max_seq: int):
+    if serving_tp(cfg, rules) is not None:
+        cache["max_seq"] = max_seq
     return cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device=None, rules=None) -> dict:
+    """An empty cache of ``batch`` rows: every leaf zero, ``length`` 0;
+    under ``rules``, this rank's rows and, over ``model``, its block of
+    positions (`abstract_cache`'s shapes)."""
+    device = resolve(device)
+    specs = cache_specs(cfg, batch, max_seq)
+    shapes = {k: spec.shape for k, spec in specs.items()}
+    if rules is not None:
+        shapes = {k: t.shape for k, t in _abstract(
+            specs, rules, model=tensor_parallel(cfg)).items()}
+    cache = {name: torch.zeros(shapes[name], dtype=TORCH_DTYPES[spec.dtype],
+                               device=device)
+             for name, spec in specs.items()}
+    cache["length"] = 0
+    return _cache_meta(cache, cfg, rules, max_seq)
 
 
 def abstract_cache(cfg: ModelConfig, rules, batch: int,
                    max_seq: int) -> dict:
     """The cache of ``batch`` rows and ``max_seq`` positions as meta
-    tensors at this rank's local shapes; ``length`` is ``max_seq - 1``."""
-    cache = _abstract(cache_specs(cfg, batch, max_seq), rules, model=False)
+    tensors at this rank's local shapes (a tensor-parallel family's cut
+    on ``kv_seq`` over ``model`` where the spec cuts it); ``length`` is
+    ``max_seq - 1``, so the one decode step writes the last position,
+    which the last model rank holds."""
+    cache = _abstract(cache_specs(cfg, batch, max_seq), rules,
+                      model=tensor_parallel(cfg))
     cache["length"] = max_seq - 1
-    return cache
+    return _cache_meta(cache, cfg, rules, max_seq)
 
 
 def _tokens(rules, shape) -> torch.Tensor:
@@ -185,15 +234,54 @@ def input_specs(cfg: ModelConfig, shape, rules) -> dict:
     return {"token": _tokens(rules, (b, 1))}
 
 
+@contextlib.contextmanager
+def _serving_tree(params: dict, cfg: ModelConfig, rules):
+    """The params as ``cfg``'s serving reads them under ``rules``, and
+    the keyword that hands a tensor-parallel family its rules: an FSDP
+    leaf outside the layer stacks gathered here in the compute dtype, a
+    stacked one a layer at a time within (`gather_per_layer`)."""
+    shardings = serving_shardings(cfg, rules)
+    if shardings is None:
+        yield params, ({"rules": rules} if tensor_parallel(cfg) else {})
+        return
+    cd = TORCH_DTYPES[cfg.compute_dtype]
+    specs = param_specs(cfg)
+    tree, per_layer = dict(params), []
+    for k, sh in shardings.items():
+        if sh.n == 1:
+            continue
+        if specs[k].logical[:1] == ("layers",):
+            per_layer.append((params[k], sh))
+        else:
+            tree[k] = fsdp_gather(params[k], sh, sh.dim, cd)
+    with gather_per_layer(per_layer, cd):
+        yield tree, {"rules": rules}
+
+
 @torch.inference_mode()
-def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int, **extra):
+def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int,
+            rules=None, **extra):
     """(cache, logits of the last position (b, 1, vocab)); ``extra`` is
-    ``frames`` (audio) or ``patch_embeds`` (vlm)."""
-    return _serving(cfg, "prefill")(params, cfg, tokens, max_seq, **extra)
+    ``frames`` (audio) or ``patch_embeds`` (vlm). Over ``model`` (the
+    module docstring) ``params`` are this rank's slices, the cache is its
+    block and the logits its vocab columns."""
+    with _serving_tree(params, cfg, rules) as (tree, kw):
+        return _serving(cfg, "prefill")(tree, cfg, tokens, max_seq, **extra,
+                                        **kw)
 
 
 @torch.inference_mode()
-def decode_step(params: dict, cfg: ModelConfig, cache: dict, token):
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, token,
+                rules=None):
     """(logits (b, 1, vocab), cache advanced by one position); the cache's
     tensors are updated in place."""
-    return _serving(cfg, "decode_step")(params, cfg, cache, token)
+    with _serving_tree(params, cfg, rules) as (tree, kw):
+        return _serving(cfg, "decode_step")(tree, cfg, cache, token, **kw)
+
+
+def greedy_token(cfg: ModelConfig, logits, rules=None):
+    """The greedy next token (b, 1) of the last position of ``logits``
+    that `prefill` or `decode_step` gave under ``rules``: the first
+    maximum over the whole vocab, as ``jnp.argmax`` takes it."""
+    return TP.vocab_argmax(logits[:, -1],
+                           vocab_tp(serving_tp(cfg, rules)))[:, None]

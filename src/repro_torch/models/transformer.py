@@ -11,17 +11,26 @@ Every family's training path runs its stacks through `run_layers`, which
 is where an FSDP step gathers each layer's weights
 (`repro_torch.dist.sharding.gather_per_layer`).
 
-Training takes ``rules``: on a mesh whose ``model`` extent is above 1 the
-layers run tensor-parallel (`repro_torch.dist.tensor_parallel`) on this
-rank's slices of the model-cut leaves; with no rules, or ``model`` of
-extent 1, they are the plain whole layers. Serving is not tensor-parallel.
+Training and serving take ``rules``: on a mesh whose ``model`` extent is
+above 1 the layers run tensor-parallel (`repro_torch.dist
+.tensor_parallel`) on this rank's slices of the model-cut leaves; with no
+rules, or ``model`` of extent 1, they are the plain whole layers.
 
 Serving takes the f32 params as the reference's does and casts at each
 use. A cache is a dict of tensors and ``length``, a host int: the number
 of positions written, so writing at ``pos`` and masking cost no device
 sync. ``decode_step`` writes the new position into the cache's tensors in
 place (the reference's serving loop donates its cache) and returns the
-dict with ``length`` advanced.
+dict with ``length`` advanced. Over ``model`` the cache is cut on
+``kv_seq`` where the spec cuts it (``max_seq`` divisible by m): model
+rank r holds positions [r S/m, (r + 1) S/m) of every layer, kv head and
+this dp rank's rows, and the cache keeps ``max_seq``, a host int, so
+decode knows its block (`cache_first`). Prefill writes into each block
+the prompt positions that fall in it; decode writes the new token's k
+and v on the rank that holds ``pos`` and combines every rank's partial
+attention over its block; prefill's and decode's logits are this rank's
+vocab columns where the vocab is cut. The layer loops gather an FSDP
+leaf's slice just before its layer (`serving_layers`).
 """
 from __future__ import annotations
 
@@ -31,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.buckets import TORCH_DTYPES
 from repro_torch.dist import tensor_parallel as TP
-from repro_torch.dist.sharding import layer_gathers
+from repro_torch.dist.sharding import P, layer_gathers
 from repro_torch.models import layers as L
 from repro_torch.models.common import ParamSpec
 
@@ -88,10 +97,14 @@ def attn_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True,
     """Pre-norm attention with its residual: the flash kernel forward
     (top-left causal or none) and the recompute-from-lse backward; with
     ``tp``, over ``model`` (`layers.attention_tp`). With ``prefill`` the
-    forward alone, returning ``(x, (k, v))`` with k, v at the kv heads
-    (the cache's entries)."""
+    forward alone, returning ``(x, (k, v))`` with k, v at every kv head
+    and position (the cache's entries)."""
     b, s, _ = x.shape
     xn = L.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    if tp is not None and prefill:
+        y, kv = L.attention_tp(xn, lp, cfg, positions, causal, tp,
+                               prefill=True)
+        return x + y, kv
     if tp is not None:
         return x + L.attention_tp(xn, lp, cfg, positions, causal, tp)
     q, k, v = L.attn_project_qkv(xn, lp, cfg, positions)
@@ -116,12 +129,18 @@ def dense_block(x, lp: dict, cfg: ModelConfig, positions, *, causal=True,
     return (x, kv) if prefill else x
 
 
-def decode_attn(x, lp: dict, kc, vc, pos: int, cfg: ModelConfig):
+def decode_attn(x, lp: dict, kc, vc, pos: int, cfg: ModelConfig, tp=None,
+                first=None):
     """The attention half of a decode block: x (b, 1, d) at position
     ``pos``; its k, v are written into one layer's caches kc, vc (b, S, kv,
-    hd) at ``pos`` in place, and it attends over positions < pos + 1."""
+    hd) at ``pos`` in place, and it attends over positions < pos + 1. With
+    ``tp``, over ``model`` (`layers.attention_decode_tp`; ``first`` the
+    global position of this rank's cache block, None where the cache is
+    whole)."""
     b = x.shape[0]
     xn = L.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    if tp is not None:
+        return x + L.attention_decode_tp(xn, lp, kc, vc, pos, cfg, tp, first)
     positions = torch.full((b, 1), pos, device=x.device)
     q, k, v = L.attn_project_qkv(xn, lp, cfg, positions)
     kc[:, pos] = k[:, 0]
@@ -130,12 +149,13 @@ def decode_attn(x, lp: dict, kc, vc, pos: int, cfg: ModelConfig):
     return x + o.reshape(b, 1, -1) @ lp["wo"].to(o.dtype)
 
 
-def decode_block(x, lp: dict, kc, vc, pos: int, cfg: ModelConfig):
+def decode_block(x, lp: dict, kc, vc, pos: int, cfg: ModelConfig, tp=None,
+                 first=None):
     """Single-token dense block against one layer's KV cache (written in
-    place). x: (b, 1, d) -> (b, 1, d)."""
-    x = decode_attn(x, lp, kc, vc, pos, cfg)
+    place). x: (b, 1, d) -> (b, 1, d). With ``tp``, over ``model``."""
+    x = decode_attn(x, lp, kc, vc, pos, cfg, tp, first)
     xn = L.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + L.mlp(xn, lp, cfg)
+    return x + L.mlp(xn, lp, cfg, tp)
 
 
 def layers_of(stacked: dict) -> list:
@@ -145,6 +165,18 @@ def layers_of(stacked: dict) -> list:
     keys = list(stacked)
     per_layer = [stacked[k].unbind(0) for k in keys]
     return [dict(zip(keys, ws)) for ws in zip(*per_layer)]
+
+
+def serving_layers(stacked: dict):
+    """Each layer's slice of the stacked leaves, as `layers_of` gives
+    them, for a serving loop: under the step's `gather_per_layer`, an
+    FSDP leaf's slice gathered in the compute dtype just before its layer
+    runs (`layer_gathers`), every other slice as it is. A generator, so
+    that one layer's gathered weights are made at a time."""
+    keys = list(stacked)
+    gathers = layer_gathers(stacked)
+    for lp in layers_of(stacked):
+        yield {k: g(lp[k]) for k, g in zip(keys, gathers)}
 
 
 def run_layers(x, stacked: dict, body, remat: bool):
@@ -244,37 +276,100 @@ def stack_padded(ts: list, max_seq: int):
     return out
 
 
-def prefill_embedded(x, params: dict, cfg: ModelConfig, max_seq: int):
+def cache_block(rules, tp, max_seq: int) -> tuple[int, int]:
+    """``(first, n)``: the positions [first, first + n) of a cache of
+    ``max_seq`` that this rank holds: its block of max_seq / m where
+    ``tp`` is given and the spec cuts ``kv_seq`` over ``model``, else
+    every position (the divisibility fallback keeps the cache whole)."""
+    if tp is not None and rules.spec("kv_seq", dims=(max_seq,)) == P(
+            "model"):
+        n = max_seq // tp.size
+        return tp.rank * n, n
+    return 0, max_seq
+
+
+def cache_first(cache: dict, tp):
+    """The global position of this rank's block of ``cache``'s positions,
+    or None where the cache is whole on every rank (no ``tp``, or a
+    ``max_seq`` that does not divide over ``model``)."""
+    n = cache["k"].shape[2]
+    if tp is None or n == cache["max_seq"]:
+        return None
+    return tp.rank * n
+
+
+class PrefillCache:
+    """The KV cache a prefill fills a layer at a time: this rank's block
+    of positions (`cache_block`; every position without ``tp``), zero
+    where the prompt does not reach, each layer's k and v (every
+    position) written into the part of it the prompt covers. Over
+    ``model`` the cache keeps ``max_seq``. Raises ``ValueError`` when
+    ``max_seq`` is shorter than the prompt, as the reference's
+    ``jnp.pad`` does on the negative pad."""
+
+    def __init__(self, x, cfg: ModelConfig, max_seq: int, rules=None,
+                 tp=None):
+        b, self.s = x.shape[:2]
+        if max_seq < self.s:
+            raise ValueError(f"max_seq {max_seq} is shorter than the "
+                             f"prompt's {self.s} positions")
+        self.first, n = cache_block(rules, tp, max_seq)
+        shape = (cfg.num_layers, b, n, cfg.num_kv_heads, cfg.head_dim)
+        self.k, self.v = x.new_zeros(shape), x.new_zeros(shape)
+        self.extra = {} if tp is None else {"max_seq": max_seq}
+        self.layers = 0
+
+    def add(self, k, v):
+        i, first = self.layers, self.first
+        end = min(self.s, first + self.k.shape[2])
+        if end > first:
+            self.k[i, :, :end - first] = k[:, first:end]
+            self.v[i, :, :end - first] = v[:, first:end]
+        self.layers += 1
+
+    def cache(self) -> dict:
+        return {"k": self.k, "v": self.v, "length": self.s, **self.extra}
+
+
+def prefill_embedded(x, params: dict, cfg: ModelConfig, max_seq: int,
+                     rules=None):
     """The prefill of the dense stack from its input embeddings x (b, s,
-    d): (cache, logits of the last position (b, 1, vocab))."""
+    d): (cache, logits of the last position (b, 1, vocab)); under
+    ``rules`` with a ``model`` extent above 1, tensor-parallel (the
+    module docstring)."""
     b, s, _ = x.shape
+    tp = tp_context(cfg, rules)
     positions = torch.arange(s, device=x.device).expand(b, s)
     stacked = {k: params[k] for k in LAYER_KEYS if k in params}
-    ks, vs = [], []
-    for lp in layers_of(stacked):
-        x, (k, v) = dense_block(x, lp, cfg, positions, prefill=True)
-        ks.append(k)
-        vs.append(v)
-    cache = {"k": stack_padded(ks, max_seq), "v": stack_padded(vs, max_seq),
-             "length": s}
-    return cache, final_logits(x[:, -1:], params, cfg)
+    fill = PrefillCache(x, cfg, max_seq, rules, tp)
+    for lp in serving_layers(stacked):
+        x, (k, v) = dense_block(x, lp, cfg, positions, prefill=True, tp=tp)
+        fill.add(k, v)
+    return fill.cache(), final_logits(x[:, -1:], params, cfg, tp)
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int):
+def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int,
+            rules=None):
     """Run the full prompt; returns (cache with per-layer k/v padded to
     ``max_seq``, logits of the last position)."""
     x = L.embed_tokens(params["embed"], tokens,
-                       TORCH_DTYPES[cfg.compute_dtype])
-    return prefill_embedded(x, params, cfg, max_seq)
+                       TORCH_DTYPES[cfg.compute_dtype],
+                       vocab_tp(tp_context(cfg, rules)))
+    return prefill_embedded(x, params, cfg, max_seq, rules)
 
 
-def decode_step(params: dict, cfg: ModelConfig, cache: dict, token):
-    """token: (b, 1) integer; cache: {"k", "v", "length"}. One new token:
-    (logits (b, 1, vocab), the cache with ``length`` + 1)."""
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, token,
+                rules=None):
+    """token: (b, 1) integer; cache: {"k", "v", "length"} (and
+    ``max_seq`` over ``model``). One new token: (logits (b, 1, vocab),
+    the cache with ``length`` + 1)."""
+    tp = tp_context(cfg, rules)
     pos = cache["length"]
     x = L.embed_tokens(params["embed"], token,
-                       TORCH_DTYPES[cfg.compute_dtype])
+                       TORCH_DTYPES[cfg.compute_dtype], vocab_tp(tp))
+    first = cache_first(cache, tp)
     stacked = {k: params[k] for k in LAYER_KEYS if k in params}
-    for i, lp in enumerate(layers_of(stacked)):
-        x = decode_block(x, lp, cache["k"][i], cache["v"][i], pos, cfg)
-    return final_logits(x, params, cfg), dict(cache, length=pos + 1)
+    for i, lp in enumerate(serving_layers(stacked)):
+        x = decode_block(x, lp, cache["k"][i], cache["v"][i], pos, cfg, tp,
+                         first)
+    return final_logits(x, params, cfg, tp), dict(cache, length=pos + 1)

@@ -6,9 +6,10 @@ num_patches, d_model); they are prepended to the token embeddings, the
 causal LM runs over the combined sequence, and the loss is taken on the
 text positions only. In serving the patches sit before the prompt in the
 cache, which then holds ``num_patches + s_text`` positions after prefill.
-Training under ``rules`` runs the dense blocks tensor-parallel over
-``model``; the patch embeddings are replicated over it, as in the
-reference.
+Training and serving under ``rules`` run the dense blocks tensor-parallel
+over ``model``; the patch embeddings are replicated over it, as in the
+reference. A cache cut on ``kv_seq`` holds the patches' and the prompt's
+positions in whichever ranks' blocks they fall.
 """
 from __future__ import annotations
 
@@ -57,12 +58,14 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int,
-            patch_embeds=None):
+            patch_embeds=None, rules=None):
     """Patches, then the prompt. Raises ``ValueError`` when ``max_seq``
     is shorter than ``num_patches + s_text``, as the reference does."""
-    return T.prefill_embedded(_embed(params, cfg, tokens, patch_embeds),
-                              params, cfg, max_seq)
+    vocab = T.vocab_tp(T.tp_context(cfg, rules))
+    return T.prefill_embedded(_embed(params, cfg, tokens, patch_embeds,
+                                     vocab), params, cfg, max_seq, rules)
 
 
-def decode_step(params: dict, cfg: ModelConfig, cache: dict, token):
-    return T.decode_step(params, cfg, cache, token)
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, token,
+                rules=None):
+    return T.decode_step(params, cfg, cache, token, rules)

@@ -283,36 +283,47 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
 F32_IN_SERVING = ("norm", "dt_bias", "A_log")
 
 
-def serving_params(cfg: ModelConfig, params: dict) -> dict:
+def serving_params(cfg: ModelConfig, params: dict, rules=None) -> dict:
     """The f32 params with every leaf serving casts to the compute dtype
     at its use (matmul and embedding weights, conv kernels, D) cast once
     here: bitwise the same results, without a cast per decode step. Norm
-    weights, dt_bias and A_log stay f32, as serving reads them."""
+    weights, dt_bias and A_log stay f32, as serving reads them. Under
+    ``rules`` where serving runs over ``model``
+    (`registry.serving_shardings`), this rank's slices, cut before the
+    cast into tensors of their own (no view keeps the whole leaf)."""
     cd = TORCH_DTYPES[cfg.compute_dtype]
+    shardings = registry.serving_shardings(cfg, rules)
+    if shardings is not None:
+        params = {k: p if shardings[k].local(p) is p
+                  else shardings[k].local(p).clone()
+                  for k, p in params.items()}
     return {k: p if k.endswith(F32_IN_SERVING) else p.to(cd)
             for k, p in params.items()}
 
 
-def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig):
+def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, rules=None):
     """prefill_step(params, inputs) -> (cache, logits): inputs holds
     ``tokens`` and, for audio and vlm, ``frames`` / ``patch_embeds``; the
-    cache is sized to ``shape.seq_len``."""
+    cache is sized to ``shape.seq_len``. Under ``rules``, this rank's
+    part (`registry.prefill`)."""
     def prefill_step(params: dict, inputs: dict):
         extra = {k: v for k, v in inputs.items() if k != "tokens"}
         return registry.prefill(params, cfg, inputs["tokens"],
-                                shape.seq_len, **extra)
+                                shape.seq_len, rules=rules, **extra)
     return prefill_step
 
 
-def build_decode_step(cfg: ModelConfig, greedy: bool = True):
+def build_decode_step(cfg: ModelConfig, rules=None, greedy: bool = True):
     """serve_step(params, cache, token) -> (next token (b, 1) int64,
     cache): the argmax of the last position's logits (the first maximum,
-    as ``jnp.argmax``)."""
+    as ``jnp.argmax``; over the whole vocab where ``rules`` cut it,
+    `registry.greedy_token`)."""
     if not greedy:
         raise ValueError("only greedy decode is ported (the JAX package's "
                          "decode step is greedy too)")
 
     def serve_step(params: dict, cache: dict, token):
-        logits, cache = registry.decode_step(params, cfg, cache, token)
-        return torch.argmax(logits[:, -1], dim=-1)[:, None], cache
+        logits, cache = registry.decode_step(params, cfg, cache, token,
+                                             rules)
+        return registry.greedy_token(cfg, logits, rules), cache
     return serve_step

@@ -57,7 +57,7 @@ SHAPES = {"train": (32, 8), "prefill": (32, 8), "decode": (32, 8)}
 # Two differences the test names: integer inputs are int64 in the port
 # (its index type) where the reference's are int32; and a dim the
 # reference cuts over "model" stays whole in the port where it computes
-# the layer whole (serving, and the families that are not tensor-parallel).
+# the layer whole (the families that are not tensor-parallel).
 INT_DTYPES = {"int32": "int64"}
 # the MoE train step traced on the fake (4, 2) world: (seq, batch), 2 rows
 # a dp rank
@@ -242,9 +242,10 @@ def test_stand_ins_match_the_references(ref, port, arch):
     """Leaf for leaf: the reference's global shape (from the port's specs
     where the stand-in is local) and dtype, and a local shape equal to the
     reference's per-device shard shape, except on model-mapped dims where
-    the port computes the layer whole (every family's cache and inputs,
-    and the state of a family that is not tensor-parallel), which it
-    holds whole."""
+    the port computes the layer whole (every family's inputs, and the
+    state and cache of a family that is not tensor-parallel), which it
+    holds whole. A tensor-parallel family's cache, cut on kv_seq over
+    model, keeps its max_seq as a host int."""
     want, got = ref[arch], port[arch]
     tp = port[arch + "/tp"]
     assert tp == (arch in ("tinyllama-1.1b", "granite-34b", "arctic-480b",
@@ -256,13 +257,13 @@ def test_stand_ins_match_the_references(ref, port, arch):
         if group == "fsdp":
             continue
         names = set(leaves) - ({"length"} if group == "cache" else set())
-        assert set(got[group]) - {"length"} == names, group
+        assert set(got[group]) - {"length", "max_seq"} == names, group
         for k in names:
             shape, dtype, shard, model = leaves[k]
             lshape, ldtype, device = got[group][k]
             assert device == "meta", (group, k)
             assert ldtype == INT_DTYPES.get(dtype, dtype), (group, k)
-            cut = tp and group in ("params", "mu", "nu")
+            cut = tp and group in ("params", "mu", "nu", "cache")
             assert lshape == [g if m and not cut else s for g, s, m
                               in zip(shape, shard, model)], (group, k)
             if group in ("params", "mu", "nu"):
@@ -273,6 +274,7 @@ def test_stand_ins_match_the_references(ref, port, arch):
         # the reference's length is an int32 scalar, the port's a host int
         assert want["cache"]["length"] is None
         assert got["cache"]["length"] == 31
+        assert got["cache"].get("max_seq") == (32 if tp else None)
 
 
 def test_stand_ins_cut_what_the_reference_cuts(ref):
@@ -444,8 +446,7 @@ def test_dryrun_cli_records_every_cell(cli):
             assert r["status"] == "ok", r
             assert set(r) == want
             assert r["chips"] == chips
-            assert r["model"] == ("tp" if shape == "train_4k"
-                                  else "replicated")
+            assert r["model"] == "tp"         # serving cells too
             assert r["hlo_flops_total"] > 0 and r["memory"]["temp_bytes"] > 0
             assert set(r["memory"]) == {"argument_bytes", "output_bytes",
                                         "temp_bytes", "alias_bytes"}
