@@ -19,8 +19,11 @@ Phases, in order; any failed check raises and the script exits nonzero:
              tensor-parallel CPU test's reduced shape and rows that end
              before the last key), at each phase-4c rank yardstick's
              local attention shape (arctic's 14:2 heads at d 128 a rank
-             of (1, 4), its 56:8 heads on one row a rank of (4, 1), and
-             the serving yardstick's 8:1 heads at d 64, batch 8 x 2048),
+             of (1, 4), its 56:8 heads on one row a rank of (4, 1), the
+             serving yardstick's 8:1 heads at d 64, batch 8 x 2048, and
+             the family yardsticks': zamba2's shared block at 8:8 heads,
+             whisper's encoder, decoder and 448 x 1500 cross-attention at
+             4:4, the ViT's 4:4 at d 80, each timed too),
              on test shapes and again on every
              leaf and bucket of the main path, and time kernel, plain
              version, bound and one library call (the library call is a
@@ -61,7 +64,11 @@ Phases, in order; any failed check raises and the script exits nonzero:
              and backward (train(rules=) then runs the plain layers);
              and serving under that mesh's rules (phase 9's dense batch
              8 x prompt 2048 at 2 layers, 8 greedy decode steps) bitwise
-             serving with no rules: prefill logits, tokens and cache.
+             serving with no rules: prefill logits, tokens and cache;
+             and mamba2 and whisper at phase 8's cut and 2 layers: one
+             microbatch's loss and gradients, 2 train steps, then phase
+             9's prefill and 8 greedy decode steps under that mesh's
+             rules bitwise the same with no rules.
 4c. dryrun — the port's dry run (``python -m repro_torch.launch.dryrun
              --arch tinyllama-1.1b``, and again with ``--multi-pod``) in
              two subprocesses that see no card (a fake world of 256 or
@@ -94,7 +101,12 @@ Phases, in order; any failed check raises and the script exits nonzero:
              4b's cut, and arctic-480b at phase 8's cut (1 layer, 8
              experts, 2 a rank over ``model``, batch 4 x 2048 in 2
              microbatches), whose expert-parallel step routes every token
-             on every model rank and runs its own two experts. Then the
+             on every model rank and runs its own two experts, and four
+             more times, for mamba2, zamba2, whisper and the ViT at phase
+             8's cuts (mamba2's 80 SSD heads 20 a rank, zamba2's 64 and
+             its shared block's 32:32 heads 16 and 8:8, whisper's 16:16
+             heads 4:4, the ViT's 4:4), each flash call at a local shape
+             ``attention_shapes`` predicts (mamba2 none). Then the
              FSDP yardstick, the same checks for rank 0 of a (4, 1) mesh
              with FSDP: arctic-480b at phase 8's width, 4 layers, 8 x 2048
              in 2 microbatches, every ``wemb`` dim cut over the 4 data
@@ -111,7 +123,9 @@ Phases, in order; any failed check raises and the script exits nonzero:
              peak, its roofline compute and memory terms no longer than
              the measured prefill, the wgmma flash kernel once a layer in
              prefill (as analysed) and no kernel in decode; its prefill
-             ms and decode ms a token printed.
+             ms and decode ms a token printed; and again for mamba2 at
+             phase 9's cut (2 layers, 4 x 2048 + 8, 20 SSD heads a rank,
+             no flash launch).
 5. checkpointers — the training CLI (``repro_torch.launch.train.run``)
              at full width, ``--freq 1``, 5 steps, once per checkpointer:
              none; checkmate (2 async nodes, lag bound 2); checkmate
@@ -164,7 +178,7 @@ Phases, in order; any failed check raises and the script exits nonzero:
              trainer's and the shadow's checkpoints bitwise those of its
              CPU run (plain versions), each elastic drill booking
              elastic-reshard; the five full-level scenarios at
-             tinyllama-1.1b full width, 2 layers, batch 8 x seq 2048,
+             tinyllama-1.1b full width, 1 layer, batch 8 x seq 2048,
              bf16, the config's 4 microbatches: every invariant passes,
              the wgmma flash kernel 2 x layers x microbatches times per
              executed step of the reference and checkpointed runs, the
@@ -257,7 +271,11 @@ expert-parallel arctic rank's heads, with one step of phase 4c's
 launches), ``flash_fsdp_rank`` (an FSDP arctic rank's, with one step of
 the FSDP yardstick's launches), ``flash_tp_serve_rank`` (a
 tensor-parallel serving rank's prefill, with the serving yardstick's
-launches) and ``pack_host`` timing lines, a ``kernels`` JSON line,
+launches), ``flash_tp_zamba2_rank``, ``flash_tp_whisper_enc_rank``,
+``flash_tp_whisper_self_rank``, ``flash_tp_whisper_cross_rank`` and
+``flash_tp_vit_rank`` (a family rank's local shapes, not causal where the
+model's attention is not, with one step of that family yardstick's
+launches at the shape) and ``pack_host`` timing lines, a ``kernels`` JSON line,
 a ``checkpointers`` JSON line, a ``durability`` JSON line, a ``harness``
 JSON line, a ``families`` JSON line, a ``serving`` JSON line, a
 ``benchmarks`` JSON line (each twin's CSV rows, seconds, launches and
@@ -526,9 +544,9 @@ def flash_cases() -> tuple[list, int]:
               for c in attention_shapes(rank_local(cut, mesh), seq,
                                         batch // mesh[0]
                                         // cut.microbatches)]
-    cut, b, prompt, _, mesh = serve_yard_cell()
-    cases += list(attention_shapes(rank_local(cut, mesh), prompt,
-                                   b // mesh[0]))
+    for cut, b, prompt, _, mesh in serve_yard_cells().values():
+        cases += list(attention_shapes(rank_local(cut, mesh), prompt,
+                                       b // mesh[0]))
     family = family_flash_cases()
     return cases + family, len(family)
 
@@ -765,6 +783,12 @@ def time_kernels(dev, cfg, errs: dict) -> tuple[list[dict], dict, dict]:
     extra["flash_tp_serve_rank"] = flash_row(
         dev, gen, (bsz // mesh[0], prompt, loc.num_heads, loc.num_kv_heads,
                    loc.head_dim), torch.bfloat16, errs)
+    # the tensor-parallel family ranks' attention: each local shape phase
+    # 4c's family yardsticks launch (rank 0 of the (1, 4) mesh)
+    for name, (_, shape) in family_rank_flash().items():
+        b, sq, skv, h, kv, d, dt, causal = shape
+        extra[name] = flash_row(dev, gen, (b, sq, h, kv, d), dt, errs,
+                                skv=skv, causal=causal)
     for r in rows + list(extra.values()):
         r["route"] = "cuda"
         by = ", ".join(filter(None, (r["bound_by"], r.get("bound_unit"))))
@@ -781,9 +805,29 @@ FLASH_SOURCES = {"flash_attention_wgmma": "flash_attention_wgmma.cu",
                  "flash_attention_mma": "flash_attention.cu"}
 
 
-def flash_row(dev, gen, shape, dt, errs, skv=None, q_offset=0) -> dict:
-    """The flash kernel ``route`` picks, timed at (b, s, h, kv, d), causal,
-    beside its plain version and SDPA on kv expanded to h heads. Its bound
+def family_rank_flash() -> dict:
+    """{row name: (yardstick label, flash shape)} of every local flash
+    shape phase 4c's family yardsticks launch (`attention_shapes` of
+    rank 0's heads, one microbatch of its rows): one row a family, and
+    whisper's by call (``enc``, ``self``, ``cross``)."""
+    rows, cells = {}, rank_yard_cells()
+    for label in FAMILY_YARDS:
+        cut, bsz, seq, mesh = cells[label]
+        shapes = list(attention_shapes(rank_local(cut, mesh), seq,
+                                       bsz // mesh[0] // cut.microbatches))
+        for shape in shapes:
+            sq, skv, causal = shape[1], shape[2], shape[7]
+            kind = ("" if len(shapes) == 1 else "_self" if causal
+                    else "_enc" if sq == skv else "_cross")
+            rows[f"flash_tp_{label}{kind}_rank"] = (label, shape)
+    return rows
+
+
+def flash_row(dev, gen, shape, dt, errs, skv=None, q_offset=0,
+              causal=True) -> dict:
+    """The flash kernel ``route`` picks, timed at (b, s, h, kv, d), causal
+    (or with no mask: ``causal`` False, every (q, k) pair), beside its
+    plain version and SDPA on kv expanded to h heads. Its bound
     is that of the unit it runs on: bf16 products on the tensor cores
     (wgmma), or at the TF32 rate three times for f32 and one and a half
     times for bf16 (mma.sync, 3xTF32; bf16 splits only P), with the f32
@@ -803,14 +847,17 @@ def flash_row(dev, gen, shape, dt, errs, skv=None, q_offset=0) -> dict:
     qt = q.transpose(1, 2)
     kt = ref.expand_kv(k, h).transpose(1, 2)
     vt = ref.expand_kv(v, h).transpose(1, 2)
-    if q_offset:
+    if not causal:
+        sdpa = {}
+    elif q_offset:
         from torch.nn.attention.bias import causal_lower_right
         check(q_offset == skv - sq, f"flash_row: offset {q_offset} is not "
                                     f"the bottom-right mask's {skv - sq}")
         sdpa = dict(attn_mask=causal_lower_right(sq, skv))
     else:
         sdpa = dict(is_causal=True)
-    pairs = causal_pairs(sq, skv, q_offset)     # causal (q, k) pairs
+    # the (q, k) pairs the mask keeps
+    pairs = causal_pairs(sq, skv, q_offset) if causal else sq * skv
     flops = 4.0 * b * h * d * pairs
     item = q.element_size()
     nbytes = item * (q.numel() * 2 + k.numel() + v.numel()) + 4.0 * b * h * sq
@@ -830,8 +877,9 @@ def flash_row(dev, gen, shape, dt, errs, skv=None, q_offset=0) -> dict:
         name=name, source=f"src/repro_torch/kernels/csrc/{FLASH_SOURCES[name]}",
         replaces="src/repro/kernels/flash_attention.py:80",
         max_abs_err=errs[f"{name}:{str(dt).removeprefix('torch.')}"],
-        ms=time_ms(lambda: ops.flash_attention(q, k, v, True, q_offset), 10),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, True,
+        ms=time_ms(lambda: ops.flash_attention(q, k, v, causal, q_offset),
+                   10),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, causal,
                                                          q_offset), 3, 1),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -839,6 +887,10 @@ def flash_row(dev, gen, shape, dt, errs, skv=None, q_offset=0) -> dict:
         shape=list(shape), dtype=str(dt).removeprefix("torch."), **extra)
     if q_offset:
         row.update(skv=skv, q_offset=q_offset)
+    elif skv != sq:
+        row.update(skv=skv)
+    if not causal:
+        row.update(causal=False)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return row
@@ -1134,6 +1186,93 @@ def serving_at_model_one(mesh, cut) -> dict:
             "sample_tokens": ta[0].tolist()}
 
 
+# the families held bitwise on the (1, 1) mesh (phase 4b): phase 8's cuts at
+# ONE_LAYERS layers (whisper: and encoder layers), FAMILY_BATCH rows,
+# ONE_STEPS training steps; serving phase 9's batch and prompt and
+# SERVE_YARD_STEPS decode steps
+ONE_FAMILIES, ONE_LAYERS, ONE_STEPS = ("mamba2", "whisper"), 2, 2
+
+
+def families_at_model_one(mesh) -> dict:
+    """Training and serving of each of ONE_FAMILIES under the rules of the
+    one-rank mesh bitwise the same with no rules: one microbatch's loss
+    and gradients (`registry.loss_fn`, which takes the family's context,
+    None at model extent 1), ONE_STEPS steps of the built train step,
+    then prefill and greedy decode (logits, tokens and every cache
+    leaf)."""
+    from repro_torch.data.synthetic import SyntheticStream, device_batch
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.launch.serve import max_seq_for
+    from repro_torch.models import registry
+    from repro_torch.optim.functional import OptimizerConfig, init_state
+    from repro_torch.train.step import (build_decode_step, build_train_step,
+                                        serving_params)
+    out = {}
+    for label in ONE_FAMILIES:
+        cut = dataclasses.replace(
+            family_cfg(label), num_layers=ONE_LAYERS,
+            encoder_layers=min(family_cfg(label).encoder_layers, ONE_LAYERS))
+        seq = FAMILY_CELLS[label][2]
+        rules = ShardingRules(mesh, fsdp=cut.fsdp)
+        check(registry.family_module(cut).tp_context(cut, rules) is None
+              and registry.serving_tp(cut, rules) is None,
+              f"ranks: {label} has a context at model extent 1")
+        full = registry.init_params(cut, 0, "cuda")
+        stream = SyntheticStream(cut, FAMILY_BATCH, seq, seed=0)
+        batch = device_batch(stream.batch_at(0), "cuda")
+        one = {k: v[:FAMILY_BATCH // cut.microbatches]
+               for k, v in batch.items()}
+        runs = {}
+        for name, r in (("rules", rules), ("plain", None)):
+            leaves = {k: p.clone().requires_grad_(True)
+                      for k, p in full.items()}
+            loss = registry.loss_fn(leaves, cut, one, rules=r)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            del leaves
+            state = init_state({k: p.clone() for k, p in full.items()})
+            step = build_train_step(cut, OptimizerConfig(), lambda t: 1e-3,
+                                    r)
+            for t in range(ONE_STEPS):
+                state, _, _ = step(state, device_batch(stream.batch_at(t),
+                                                       "cuda"))
+            _, _, b, prompt, _ = serve_cells()[label]
+            params = serving_params(cut, full, r)
+            toks, extra = serve_inputs(cut, b, prompt, torch.bfloat16,
+                                       "cuda")
+            max_seq = max_seq_for(cut, prompt, SERVE_YARD_STEPS)
+            cache, logits = registry.prefill(params, cut, toks, max_seq,
+                                             rules=r, **extra)
+            tok = registry.greedy_token(cut, logits, r)
+            toks_out, dec = [tok], build_decode_step(cut, r)
+            for _ in range(SERVE_YARD_STEPS):
+                tok, cache = dec(params, cache, tok)
+                toks_out.append(tok)
+            runs[name] = (loss, grads, state, logits, cache,
+                          torch.cat(toks_out, dim=1))
+            del params, step
+        (la, ga, sa, pa, ca, ta), (lb, gb, sb, pb, cb, tb) = \
+            runs["rules"], runs["plain"]
+        same = (torch.equal(la, lb)
+                and all(torch.equal(x, y) for x, y in zip(ga, gb))
+                and all(torch.equal(t, getattr(sb, tree)[k])
+                        for tree in ("params", "mu", "nu")
+                        for k, t in getattr(sa, tree).items())
+                and torch.equal(pa, pb) and torch.equal(ta, tb)
+                and set(ca) == set(cb) and ca["length"] == cb["length"]
+                and all(torch.equal(ca[k], cb[k]) for k in cb
+                        if torch.is_tensor(cb[k])))
+        check(same, f"ranks: {label} on the one-rank mesh differs from no "
+                    f"rules (training or serving)")
+        out[label] = {"layers": ONE_LAYERS, "batch": FAMILY_BATCH,
+                      "seq": seq, "steps": ONE_STEPS,
+                      "serve": [b, prompt, SERVE_YARD_STEPS],
+                      "loss": float(la.detach()), "bitwise_equal": True,
+                      "sample_tokens": ta[0].tolist()}
+        del runs, full, batch, one
+        _free()
+    return out
+
+
 def phase_ranks(cfg) -> dict:
     import shutil
     import tempfile
@@ -1156,6 +1295,7 @@ def phase_ranks(cfg) -> dict:
               f"ranks: mesh {mesh} at {mesh.coords}")
         identity_at_model_one(mesh, cut)
         serve_one = serving_at_model_one(mesh, cut)
+        fam_one = families_at_model_one(mesh)
         for label, kw in (("rules", {"rules": ShardingRules(mesh)}),
                           ("plain", {})):
             _free()
@@ -1208,13 +1348,15 @@ def phase_ranks(cfg) -> dict:
                        for k, r in runs.items()},
            "launches": {k: r["launches"] for k, r in runs.items()},
            "bitwise_equal": True, "serving_at_model_one": serve_one,
-           "card": card_name_power()}
+           "families_at_model_one": fam_one, "card": card_name_power()}
     print(f"ranks: one-rank NCCL train(rules=) vs train(), {cut.name} "
           f"{cut.num_layers}L: step {out['step_ms']['rules']:.2f} vs "
           f"{out['step_ms']['plain']:.2f} ms, launches {out['launches']}, "
           f"losses, states and checkpoints bitwise equal; serving on the "
           f"(1, 1) mesh ({serve_one['batch']} x {serve_one['prompt']} + "
           f"{serve_one['decode_steps']}) bitwise serving with no rules; "
+          f"training and serving of {', '.join(fam_one)} at "
+          f"{ONE_LAYERS} layers on the (1, 1) mesh bitwise no rules; "
           f"{out['card']}", flush=True)
     return out
 
@@ -1334,6 +1476,8 @@ TP_YARD_STEPS = 3
 # the FSDP yardstick: arctic at phase 8's width, 4 layers, 8 x 2048 (two
 # rows a rank) in 2 microbatches
 FSDP_YARD_LAYERS, FSDP_YARD_BATCH = 4, 8
+# the families whose tensor-parallel rank yardsticks run at phase 8's cut
+FAMILY_YARDS = ("mamba2", "zamba2", "whisper", "vit")
 
 
 def rank_yard_cells() -> dict:
@@ -1343,24 +1487,40 @@ def rank_yard_cells() -> dict:
     heads), and arctic at phase 8's (56 heads and 8 kv heads: 14 and 2 a
     rank; 8 experts: 2 a rank), each on TP_YARD_MESH; and ``fsdp``:
     arctic at phase 8's width on FSDP_YARD_MESH with FSDP, every ``wemb``
-    dim cut over the 4 data ranks and gathered a layer at a time."""
+    dim cut over the 4 data ranks and gathered a layer at a time; and
+    each of FAMILY_YARDS at phase 8's cut on TP_YARD_MESH (mamba2's 80 SSD
+    heads 20 a rank; zamba2's 64 and its shared block's 32:32 heads, 16
+    and 8:8; whisper's 16:16 heads 4:4 in its encoder, decoder and
+    cross-attention; the ViT's 16:16 heads 4:4 at d 80)."""
     from repro_torch import configs
-    return {"tinyllama": (dataclasses.replace(
-                configs.get(DRYRUN_ARCH), num_layers=RANKS_LAYERS),
-                MAIN_RUN["batch"], MAIN_RUN["seq"], TP_YARD_MESH),
-            "arctic": (family_cfg("arctic"), FAMILY_BATCH,
-                       FAMILY_CELLS["arctic"][2], TP_YARD_MESH),
-            "fsdp": (dataclasses.replace(family_cfg("arctic"),
-                                         num_layers=FSDP_YARD_LAYERS,
-                                         fsdp=True),
-                     FSDP_YARD_BATCH, FAMILY_CELLS["arctic"][2],
-                     FSDP_YARD_MESH)}
+    cells = {"tinyllama": (dataclasses.replace(
+                 configs.get(DRYRUN_ARCH), num_layers=RANKS_LAYERS),
+                 MAIN_RUN["batch"], MAIN_RUN["seq"], TP_YARD_MESH),
+             "arctic": (family_cfg("arctic"), FAMILY_BATCH,
+                        FAMILY_CELLS["arctic"][2], TP_YARD_MESH),
+             "fsdp": (dataclasses.replace(family_cfg("arctic"),
+                                          num_layers=FSDP_YARD_LAYERS,
+                                          fsdp=True),
+                      FSDP_YARD_BATCH, FAMILY_CELLS["arctic"][2],
+                      FSDP_YARD_MESH)}
+    for label in FAMILY_YARDS:
+        cells[label] = (family_cfg(label), FAMILY_BATCH,
+                        FAMILY_CELLS[label][2], TP_YARD_MESH)
+    return cells
 
 
 def rank_local(cut, mesh):
     """``cut`` with the heads rank 0 of ``mesh`` attends over (every
-    yardstick cuts q and kv heads on whole heads)."""
+    yardstick cuts q and kv heads on whole heads, and the SSD heads of
+    the ssm and hybrid families on whole heads too); an attention-free
+    model has no attention heads to cut."""
     m = mesh[1]
+    if cut.family in ("ssm", "hybrid"):
+        check(cut.ssm_heads % m == 0,
+              f"dryrun: {cut.name}'s {cut.ssm_heads} SSD heads do not split "
+              f"over {m} model ranks")
+    if cut.family == "ssm":
+        return cut
     check(cut.num_heads % m == 0 and cut.num_kv_heads % m == 0,
           f"dryrun: {cut.name}'s heads do not split over {m} model ranks")
     return dataclasses.replace(cut, num_heads=cut.num_heads // m,
@@ -1376,8 +1536,11 @@ def rank_yardstick(label: str) -> dict:
     DRYRUN_MEMORY_RTOL of the step's peak allocation, the roofline's
     compute and memory terms no longer than the measured step (its
     collective term is reported beside them: the fake collectives cost
-    the card nothing), and the wgmma flash kernel and AdamW launched as
-    often as the analysis counts them."""
+    the card nothing), the wgmma flash kernel launched as often as the
+    model implies (twice a microbatch per attention call: the forward and
+    the remat recompute; none for mamba2), each call at a local shape
+    `attention_shapes` predicts (phase 2 holds them), and the flash
+    kernel and AdamW as often as the analysis counts them."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.synthetic import SyntheticStream, device_batch
     from repro_torch.dist.sharding import Mesh, ShardingRules
@@ -1431,27 +1594,44 @@ def rank_yardstick(label: str) -> dict:
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        times = []
-        for i in range(TP_YARD_STEPS):
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            out = step(state, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            del out
+        times, flash_fn = [], ops.flash_attention
+
+        def recording(q, k, v, causal, q_offset=0):
+            seen[(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                  q.shape[3], q.dtype, causal)] += 1
+            return flash_fn(q, k, v, causal, q_offset)
+        ops.flash_attention = recording
+        try:
+            for i in range(TP_YARD_STEPS):
+                ops.reset_launch_counts()
+                seen = collections.Counter()      # the last step's calls
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                del out
+        finally:
+            ops.flash_attention = flash_fn
         step_s = statistics.median(times)
         peak = torch.cuda.max_memory_allocated() - base
         launches = ops.launch_counts()
         del state, batch, step
         _free()
     err = predicted / peak - 1.0
-    flash = 2 * cut.num_layers * cut.microbatches
+    local = attention_shapes(rank_local(cut, mesh), seq,
+                             batch_size // mesh[0] // cut.microbatches)
+    shapes = {k: 2 * cut.microbatches * n for k, n in local.items()}
+    flash = sum(shapes.values())
     local_s = max(rf.compute_s, rf.memory_s)
     check(launches["flash_attention_wgmma"] == flash
-          and a["kernels"]["flash_attention"]["calls"] == flash
+          and launches["flash_attention_mma"] == 0
+          and a["kernels"].get("flash_attention", {}).get("calls", 0) == flash
           and launches["fused_adamw"] == a["kernels"]["fused_adamw"]["calls"],
           f"dryrun: {label} step launched {launches}, the analysis "
           f"recorded {a['kernels']} (flash {flash})")
+    check(dict(seen) == shapes,
+          f"dryrun: {label} flash calls by shape {dict(seen)}, not the "
+          f"predicted {shapes}")
     check(abs(err) <= DRYRUN_MEMORY_RTOL,
           f"dryrun: {label} predicted {predicted} bytes vs the card's "
           f"peak {peak} ({err:+.1%}; tolerance {DRYRUN_MEMORY_RTOL:.0%})")
@@ -1472,8 +1652,18 @@ def rank_yardstick(label: str) -> dict:
                                   "bound", "step_time_s")},
             "step_ms": step_s * 1e3,
             "step_ms_each": [t * 1e3 for t in times], "launches": launches,
+            "flash_by_shape": {flash_key(k): n for k, n in seen.items()},
             "local_roofline_share": local_s / step_s,
             "seconds": time.perf_counter() - t_start}
+
+
+def flash_key(shape: tuple) -> str:
+    """A flash call's (b, sq, skv, h, kv, d, dtype, causal) as one
+    string, for a JSON key."""
+    *dims, dt, causal = shape
+    return "x".join(map(str, dims)) + (
+        f":{str(dt).removeprefix('torch.')}:"
+        f"{'causal' if causal else 'full'}")
 
 
 def _print_rank_yardstick(kind: str, label: str, tp: dict,
@@ -1491,34 +1681,47 @@ def _print_rank_yardstick(kind: str, label: str, tp: dict,
           f"{tp['seconds']:.1f} s in all; {card_name_power()}", flush=True)
 
 
-# the serving rank yardstick: rank 0 of a fake TP_YARD_MESH world serving
+# the serving rank yardsticks: rank 0 of a fake TP_YARD_MESH world serving
+# through prefill and SERVE_YARD_STEPS greedy decode steps over model:
 # phase 9's dense run (SERVE_DENSE: tinyllama-1.1b at full width and
-# depth, batch 8 x prompt 2048) through prefill and SERVE_YARD_STEPS greedy
-# decode steps over model (8 q heads and 1 kv head a rank)
+# depth, batch 8 x prompt 2048; 8 q heads and 1 kv head a rank), and
+# phase 9's mamba2 cell (2 layers, batch 4 x prompt 2048; 20 of its 80
+# SSD heads a rank)
 SERVE_YARD_STEPS = 8
 
 
-def serve_yard_cell() -> tuple:
-    """(config, batch, prompt, decode steps, mesh) of the serving
+def serve_yard_cells() -> dict:
+    """label: (config, batch, prompt, decode steps, mesh) of each serving
     yardstick."""
     from repro_torch import configs
-    arch, over, b, prompt, _ = SERVE_DENSE
-    return (dataclasses.replace(configs.get(arch), **over), b, prompt,
-            SERVE_YARD_STEPS, TP_YARD_MESH)
+    cells = {}
+    for label, (arch, over, b, prompt, _) in (
+            ("tinyllama", SERVE_DENSE),
+            ("mamba2", serve_cells()["mamba2"])):
+        cells[label] = (dataclasses.replace(configs.get(arch), **over), b,
+                        prompt, SERVE_YARD_STEPS, TP_YARD_MESH)
+    return cells
 
 
-def serve_yardstick() -> dict:
+def serve_yard_cell() -> tuple:
+    """(config, batch, prompt, decode steps, mesh) of the dense serving
+    yardstick."""
+    return serve_yard_cells()["tinyllama"]
+
+
+def serve_yardstick(label: str = "tinyllama") -> dict:
     """`analyze_step` of the serving prefill and decode steps for rank 0
     of a (1, 4) mesh in a fake world of 4 ranks beside that rank's own
     serving on the card (its weight slices cast as ``serving_params``
-    casts them, its block of the cache; the fake collectives move
-    nothing, so values are not checked): every local leaf the shape and
-    dtype of its stand-in, the prefill's predicted arguments +
-    temporaries within DRYRUN_MEMORY_RTOL of its peak allocation, the
-    prefill's roofline compute and memory terms no longer than the
-    measured prefill, the wgmma flash kernel once a layer in prefill (as
-    the analysis counts it) and no kernel in decode; the prefill's ms and
-    each decode step's."""
+    casts them, its cut of the cache; the fake collectives move nothing,
+    so values are not checked), for the cell ``label`` of
+    `serve_yard_cells`: every local leaf the shape and dtype of its
+    stand-in, the prefill's predicted arguments + temporaries within
+    DRYRUN_MEMORY_RTOL of its peak allocation, the prefill's roofline
+    compute and memory terms no longer than the measured prefill, the
+    wgmma flash kernel once an attention call in prefill (as the
+    analysis counts it; mamba2 none) and no kernel in decode; the
+    prefill's ms and each decode step's."""
     from repro_torch.dist.sharding import Mesh, ShardingRules
     from repro_torch.kernels import ops
     from repro_torch.configs.base import ShapeConfig
@@ -1529,8 +1732,9 @@ def serve_yardstick() -> dict:
     from repro_torch.models import registry
     from repro_torch.train.step import build_decode_step, serving_params
     t_start = time.perf_counter()
-    cfg, b, prompt, steps, mesh = serve_yard_cell()
+    cfg, b, prompt, steps, mesh = serve_yard_cells()[label]
     max_seq = max_seq_for(cfg, prompt, steps)
+    attn = sum(attention_shapes(cfg, prompt).values())
     names = ("data", "model")
     with fake_world(math.prod(mesh)):
         rules = ShardingRules(Mesh.over_ranks(mesh, names, device="cpu"))
@@ -1600,25 +1804,24 @@ def serve_yardstick() -> dict:
         _free()
     err = predicted / peak - 1.0
     local_s = max(rf.compute_s, rf.memory_s)
-    check(prefill_launches["flash_attention_wgmma"] == cfg.num_layers
-          == pre["kernels"]["flash_attention"]["calls"]
+    what = f"dryrun: {label} serving yardstick"
+    check(prefill_launches["flash_attention_wgmma"] == attn
+          == pre["kernels"].get("flash_attention", {}).get("calls", 0)
           and prefill_launches["flash_attention_mma"] == 0,
-          f"dryrun: serving yardstick prefill launched {prefill_launches}, "
-          f"the analysis recorded {pre['kernels']} (flash {cfg.num_layers})")
+          f"{what} prefill launched {prefill_launches}, the analysis "
+          f"recorded {pre['kernels']} (flash {attn})")
     check(all(n == 0 for n in decode_launches.values())
           and "flash_attention" not in dec["kernels"],
-          f"dryrun: serving yardstick decode launched {decode_launches}, "
-          f"the analysis recorded {dec['kernels']}")
-    check(length == max_seq, f"dryrun: serving yardstick cache length "
-                             f"{length}, not {max_seq}")
+          f"{what} decode launched {decode_launches}, the analysis "
+          f"recorded {dec['kernels']}")
+    check(length == max_seq, f"{what} cache length {length}, not "
+                             f"{max_seq}")
     check(abs(err) <= DRYRUN_MEMORY_RTOL,
-          f"dryrun: serving yardstick predicted {predicted} bytes vs the "
-          f"card's peak {peak} ({err:+.1%}; tolerance "
-          f"{DRYRUN_MEMORY_RTOL:.0%})")
+          f"{what} predicted {predicted} bytes vs the card's peak {peak} "
+          f"({err:+.1%}; tolerance {DRYRUN_MEMORY_RTOL:.0%})")
     check(local_s <= prefill_s,
-          f"dryrun: serving yardstick roofline {local_s * 1e3:.2f} ms "
-          f"(compute and memory) beats the measured prefill "
-          f"{prefill_s * 1e3:.2f} ms")
+          f"{what} roofline {local_s * 1e3:.2f} ms (compute and memory) "
+          f"beats the measured prefill {prefill_s * 1e3:.2f} ms")
     return {"model": cfg.name, "layers": cfg.num_layers, "mesh": list(mesh),
             "batch": b, "prompt": prompt, "decode_steps": steps,
             "max_seq": max_seq, "predicted_bytes": predicted,
@@ -1659,7 +1862,9 @@ def phase_dryrun(cfg) -> dict:
         tp = rank_yardstick("tinyllama")
         ep = rank_yardstick("arctic")
         fs = rank_yardstick("fsdp")
+        fam = {label: rank_yardstick(label) for label in FAMILY_YARDS}
         sv = serve_yardstick()
+        sv_ssm = serve_yardstick("mamba2")
         for out, proc in procs.items():
             log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
             check(proc.returncode == 0,
@@ -1720,23 +1925,28 @@ def phase_dryrun(cfg) -> dict:
     print(f"dryrun: FSDP yardstick step {fs['step_ms']:.2f} ms, card peak "
           f"{fs['peak_bytes'] / 1e9:.3f} GB; {card_name_power()}",
           flush=True)
-    print(f"dryrun: serving yardstick ({sv['model']}), rank 0 of "
-          f"{sv['mesh']}, {sv['layers']} layers, {sv['batch']} x "
-          f"{sv['prompt']} + {sv['decode_steps']}: prefill predicted "
-          f"{sv['predicted_bytes'] / 1e9:.3f} GB, card peak "
-          f"{sv['peak_bytes'] / 1e9:.3f} GB ({sv['memory_err']:+.1%}); "
-          f"roofline compute {sv['roofline']['compute_s'] * 1e3:.2f} ms, "
-          f"memory {sv['roofline']['memory_s'] * 1e3:.2f} ms, collective "
-          f"{sv['roofline']['collective_s'] * 1e3:.2f} ms (not run); "
-          f"measured prefill {sv['prefill_ms']:.2f} ms, decode "
-          f"{sv['decode_ms_per_token']:.3f} ms a token (median after the "
-          f"first); prefill launches {sv['prefill_launches']}, decode "
-          f"{sv['decode_launches']}; {sv['seconds']:.1f} s in all; "
-          f"{card_name_power()}", flush=True)
+    for label, t in fam.items():
+        _print_rank_yardstick("tensor-parallel", label, t,
+                              f", flash calls by shape {t['flash_by_shape']}")
+    for v in (sv, sv_ssm):
+        print(f"dryrun: serving yardstick ({v['model']}), rank 0 of "
+              f"{v['mesh']}, {v['layers']} layers, {v['batch']} x "
+              f"{v['prompt']} + {v['decode_steps']}: prefill predicted "
+              f"{v['predicted_bytes'] / 1e9:.3f} GB, card peak "
+              f"{v['peak_bytes'] / 1e9:.3f} GB ({v['memory_err']:+.1%}); "
+              f"roofline compute {v['roofline']['compute_s'] * 1e3:.2f} ms, "
+              f"memory {v['roofline']['memory_s'] * 1e3:.2f} ms, collective "
+              f"{v['roofline']['collective_s'] * 1e3:.2f} ms (not run); "
+              f"measured prefill {v['prefill_ms']:.2f} ms, decode "
+              f"{v['decode_ms_per_token']:.3f} ms a token (median after the "
+              f"first); prefill launches {v['prefill_launches']}, decode "
+              f"{v['decode_launches']}; {v['seconds']:.1f} s in all; "
+              f"{card_name_power()}", flush=True)
     return {"arch": DRYRUN_ARCH, "cells": cells,
             "multi_over_single_flops": half, "yardstick": yard,
             "tp_yardstick": tp, "ep_yardstick": ep, "fsdp_yardstick": fs,
-            "serve_yardstick": sv, "card": card_name_power()}
+            "family_yardsticks": fam, "serve_yardstick": sv,
+            "ssm_serve_yardstick": sv_ssm, "card": card_name_power()}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -2581,9 +2791,10 @@ def phase_durability(cfg, step_ms_ref: float) -> dict:
 # -- phase 7 -----------------------------------------------------------------
 
 # Phase 7's full-level scenarios: tinyllama-1.1b at full width cut to
-# HARNESS_LAYERS layers (as phase 3), bf16 compute, the config's
-# microbatches, each scenario's batch and seq replaced by HARNESS_SHAPE.
-HARNESS_LAYERS = 2
+# HARNESS_LAYERS layers, bf16 compute, the config's microbatches, each
+# scenario's batch and seq replaced by HARNESS_SHAPE. One layer (two
+# before phase 4c's family yardsticks joined) pays for those yardsticks.
+HARNESS_LAYERS = 1
 HARNESS_SHAPE = dict(batch=8, seq=2048)
 
 
@@ -3667,12 +3878,17 @@ def main():
     # yardstick's prefill
     flash_extra["flash_tp_serve_rank"]["launches"] = \
         dryrun["serve_yardstick"]["prefill_launches"]["flash_attention_wgmma"]
+    # the family ranks' rows: one step of phase 4c's family yardsticks,
+    # the calls at the row's shape
+    for name, (label, shape) in family_rank_flash().items():
+        flash_extra[name]["launches"] = dryrun["family_yardsticks"][label][
+            "flash_by_shape"].get(flash_key(shape), 0)
     print(f"timing: seconds by phase {secs}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the flash rows also name their shape and dtype, the unit of their
     # bound and, for the mma.sync kernel, the f32 units' bound beside it
-    more = ("shape", "skv", "q_offset", "dtype", "bound_unit",
+    more = ("shape", "skv", "q_offset", "causal", "dtype", "bound_unit",
             "other_bound_ms", "other_bound_by",
             "other_bound_unit")
     print(json.dumps({"main_path": main_out}))

@@ -8,8 +8,9 @@ the same file.
 The port's numbers are a model at the H100's data-sheet peaks, computed
 on the CPU from the traced step, not a measurement. Where the records
 say how a cell holds the ``model`` axis (``"model"``: ``tp`` for a
-tensor-parallel step, ``replicated`` for a family or a serving step that
-computes each layer whole on every model rank), the table adds that as
+tensor-parallel step, every family's since the ssm, hybrid, audio and
+vit families joined; ``replicated`` for a step that computes each layer
+whole on every model rank, as earlier records hold), the table adds that as
 its last column; a file without the key prints the reference's text.
 """
 from __future__ import annotations

@@ -37,16 +37,16 @@ A dim mapped to several dp axes (``("pod", "data")``) splits row-major,
 pod first, as JAX splits it.
 
 Tensor-parallel families (`repro_torch.models.registry.TENSOR_PARALLEL`:
-dense, moe and vlm) hold what the reference's GSPMD holds: a dim mapped to
+all seven) hold what the reference's GSPMD holds: a dim mapped to
 ``model`` is cut over the rank's model group, independently of a dim cut
 over the dp axes, so a ZeRO-1 leaf (``zero1_spec`` puts dp on a second
 dim) is cut twice. Their layers run the explicit collectives of
 `repro_torch.dist.tensor_parallel` over ``mesh.group("model")`` (moe's
 experts too: ``expert`` over ``model``, FSDP's ``wemb`` over the dp
-axes). The ssm, hybrid, audio and vit families, and serving, compute each
-layer whole on every rank of a ``model`` group: ``sharding(..., model=False)`` holds a ``model`` dim
-whole and cuts only the dp dim. ``spec()`` and ``sharding().spec`` are the
-reference's either way.
+axes), in training and serving. ``sharding(..., model=False)`` holds a
+``model`` dim whole and cuts only the dp dim: the layout of a family
+outside that set, which no family is now. ``spec()`` and
+``sharding().spec`` are the reference's either way.
 """
 from __future__ import annotations
 

@@ -1,20 +1,27 @@
 """Tensor parallelism over the ``model`` mesh axis: the explicit form of
-what the reference's GSPMD inserts for the dense, moe and vlm families'
-specs (moe's experts: `repro_torch.models.moe`).
+what the reference's GSPMD inserts for the specs of all seven families
+(moe's experts: `repro_torch.models.moe`; the SSM's ``ssm_inner``:
+`repro_torch.models.ssm`).
 
 Each rank of a ``model`` group holds ``1/m`` of every leaf whose spec cuts
 it over ``model`` (`repro_torch.dist.sharding.NamedSharding`) and computes
-the part of each layer that its leaves carry. Four autograd Functions over
-``mesh.group("model")`` join the parts:
+the part of each layer that its leaves carry. Five autograd Functions
+over ``mesh.group("model")`` join the parts:
 
 =====================  =======================  ===========================
 Function               forward                  backward
 =====================  =======================  ===========================
 ``copy_to_model``      identity                 all-reduce (sum)
 ``reduce_from_model``  all-reduce (sum)         identity
+``sum_over_model``     all-reduce (sum)         all-reduce (sum)
 ``gather_from_model``  all-gather along a dim   reduce-scatter along it
 ``gather_rows``        all-gather along a dim   this rank's slice
 =====================  =======================  ===========================
+
+``sum_over_model`` is for a sum of the ranks' parts that every rank then
+uses on its own slice (the SSM's gated norm over the whole ``d_inner``):
+the loss depends on each rank's part through every rank's slice, so the
+gradient of the part is the sum of the ranks' gradients of the total.
 
 A column-parallel product (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``,
 the logits) takes its input through ``copy_to_model``; a row-parallel one
@@ -112,6 +119,17 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _all_reduce(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.tp), None
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, tp):
@@ -120,7 +138,9 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g, ctx.dim, ctx.tp), None, None
+        # contiguous: a leaf used whole outside a layer stack (the hybrid's
+        # shared block) takes this as its gradient, and AdamW reads it flat
+        return _reduce_scatter(g, ctx.dim, ctx.tp).contiguous(), None, None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -142,6 +162,12 @@ def copy_to_model(x, tp):
 def reduce_from_model(x, tp):
     """``x`` summed over the model group; the gradient passed as it is."""
     return x if tp.size == 1 else _Reduce.apply(x, tp)
+
+
+def sum_over_model(x, tp):
+    """``x`` summed over the model group, and the gradient summed over it
+    too: for a total that every rank goes on to use with its own slice."""
+    return x if tp.size == 1 else _Sum.apply(x, tp)
 
 
 def gather_from_model(x, dim: int, tp):

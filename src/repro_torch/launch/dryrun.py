@@ -25,26 +25,25 @@ nothing is lowered or compiled. Results are appended to ``--out`` after
 every cell, so an interrupted run resumes where it stopped. There is no
 ``--save-hlo``: there is no HLO.
 
-Every cell of a tensor-parallel family (dense, moe, vlm:
-`registry.TENSOR_PARALLEL`) traces the tensor-parallel step under
-``ShardingRules(mesh, fsdp=cfg.fsdp)``, as the reference's dry run does:
-rank 0 holds its ``1/16`` of every leaf the spec cuts over ``model``
-(moe: its 16th of the experts), and under FSDP its ``wemb`` slices,
-gathered where they are read, and computes the layers' share those
-leaves carry (``"model": "tp"`` in the record); a serving cell's cache is
-cut on ``kv_seq`` over ``model``. Its work is not the same on every model
-rank (the sequence-sharded attention gives a later rank's query rows
-more causal pairs; the decode's one write, at the last position, falls
-in the last model rank's cache block), so the cell is traced a second
-time, for the last model rank of the first dp group
-(`last_model_rank`), and each term of the record is the larger of the
-two ranks'. Every other family's cells keep each layer whole on every
-rank of a ``model`` group (``"model": "replicated"``): there
-``flops_per_device``, ``bytes_per_device_hbm`` and
-``useful_flops_ratio`` are the port's own, up to 16 times the
-reference's where the model axis would cut; its serving cells hold whole
-weights, traced with FSDP off. Every cell's rows are cut over the dp
-ranks as the reference's are. The optimizer is the default AdamW without
+Every cell of a tensor-parallel family (`registry.TENSOR_PARALLEL`: all
+seven, dense, moe, ssm, hybrid, audio, vlm and vit) traces the
+tensor-parallel step under ``ShardingRules(mesh, fsdp=cfg.fsdp)``, as the
+reference's dry run does: rank 0 holds its ``1/16`` of every leaf the
+spec cuts over ``model`` (moe: its 16th of the experts; ssm and hybrid:
+of the SSD heads), and under FSDP its ``wemb`` slices, gathered where
+they are read, and computes the layers' share those leaves carry
+(``"model": "tp"`` in the record); a serving cell's cache is cut as its
+specs cut it over ``model`` (positions on ``kv_seq``, SSD heads, the
+cross-attention's heads). Its work is not the same on every model rank
+(the sequence-sharded attention gives a later rank's query rows more
+causal pairs; the decode's one write, at the last position, falls in the
+last model rank's cache block), so the cell is traced a second time, for
+the last model rank of the first dp group (`last_model_rank`), and each
+term of the record is the larger of the two ranks'. A family taken out
+of `registry.TENSOR_PARALLEL` would keep each layer whole on every rank
+of a ``model`` group (``"model": "replicated"``, its serving cells with
+whole weights, FSDP off). Every cell's rows are cut over the dp ranks as
+the reference's are. The optimizer is the default AdamW without
 a clip: a clip reads the gradient norm back to the host, which a meta
 tensor cannot give.
 """

@@ -19,11 +19,12 @@ reference's, ``--mesh {smoke,single,multi}`` included, and ``--device
 rank, as ``torchrun`` starts them) under ``ShardingRules(mesh,
 fsdp=cfg.fsdp)``: each dp rank prefills and decodes its own contiguous
 rows of the batch, the reference's row order (the batch must divide over
-the dp ranks), and the ranks of its model group share those rows. A
-tensor-parallel family (dense, moe, vlm) serves over ``model``: each rank
-holds its slices of the weights (FSDP's gathered a layer at a time) and
-its block of the cache's positions (`repro_torch.models.registry`); the
-other families hold whole weights on every rank. Every rank gathers the
+the dp ranks), and the ranks of its model group share those rows. Every
+family that serves (dense, moe, ssm, hybrid, audio, vlm) serves over
+``model``: each rank holds its slices of the weights (FSDP's gathered a
+layer at a time) and its cut of the cache (`repro_torch.models
+.registry`: a block of the positions, its SSD heads, its cross-attention
+heads). Every rank gathers the
 tokens over its dp ranks; global rank 0 prints the report, and its times
 are rank 0's. In a world of another size (one process) they raise the
 mesh's ``ValueError``. A vlm's cache holds the patches too:

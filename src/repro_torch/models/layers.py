@@ -8,8 +8,9 @@ is ``x @ w``.
 
 The training forms take ``tp``, the rank's `repro_torch.dist
 .tensor_parallel.ModelParallel` (None: the layer whole, as on one rank):
-``attention_tp`` (heads or sequence rows over ``model``), ``mlp`` (ff
-columns), ``embed_tokens`` and ``lm_logits`` / ``xent_loss`` (vocab).
+``attention_tp`` (heads or sequence rows over ``model``),
+``cross_attention_tp`` (heads), ``mlp`` (ff columns), ``embed_tokens``
+and ``lm_logits`` / ``xent_loss`` (vocab).
 Serving over ``model`` uses ``attention_tp`` with ``prefill`` (the flash
 forward alone, and k and v of every kv head for the cache) and
 ``attention_decode_tp`` (this rank's block of cache positions, its
@@ -209,14 +210,20 @@ def _kv_heads(x, lp, name: str, cfg, tp, hl: int):
     return t if idx is None else t[:, :, idx]
 
 
+def _rope(x, positions, cfg):
+    """RoPE at ``positions``, or ``x`` as it is where they are None (the
+    ViT)."""
+    return x if positions is None else rope(x, positions, cfg.rope_theta)
+
+
 def _kv_all(x, lp, cfg, tp, positions):
-    """k (with RoPE) and v of every kv head from the leaves taken whole:
-    (b, s, kv, hd) each."""
+    """k (with RoPE unless ``positions`` is None) and v of every kv head
+    from the leaves taken whole: (b, s, kv, hd) each."""
     b, s, _ = x.shape
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     k, v = ((x @ TP.whole(lp[n], n, -1, tp).to(x.dtype)).reshape(
         b, s, kv, hd) for n in ("wk", "wv"))
-    return rope(k, positions, cfg.rope_theta).contiguous(), v.contiguous()
+    return _rope(k, positions, cfg).contiguous(), v.contiguous()
 
 
 def attention_tp(xn, lp, cfg, positions, causal: bool, tp,
@@ -227,8 +234,9 @@ def attention_tp(xn, lp, cfg, positions, causal: bool, tp,
     where they divide ``model``, else each rank's s/m query rows
     (sequence-sharded: ``wq`` and ``wo`` whole, K and V of every
     position, the flash kernel at ``q_offset`` = the rows' first
-    position, the rows all-gathered after ``wo``). With ``prefill`` the
-    flash forward alone (`attention_prefill`: no autograd graph), and
+    position, the rows all-gathered after ``wo``); RoPE unless
+    ``positions`` is None (the ViT). With ``prefill`` the flash forward
+    alone (`attention_prefill`: no autograd graph), and
     ``(y, (k, v))`` with k and v at every kv head and position, the
     cache's entries: this rank's kv heads gathered over the group where
     the spec cuts them on whole heads, else the kv heads projected from
@@ -239,7 +247,7 @@ def attention_tp(xn, lp, cfg, positions, causal: bool, tp,
     if h % m == 0:
         hl = h // m
         q = (x @ lp["wq"].to(x.dtype)).reshape(b, s, hl, hd)
-        q = rope(q, positions, cfg.rope_theta).contiguous()
+        q = _rope(q, positions, cfg).contiguous()
         if prefill and not _kv_cut(cfg, tp):
             ka, va = _kv_all(x, lp, cfg, tp, positions)
             lo, hi, idx = _kv_span(cfg, tp, hl)
@@ -248,7 +256,7 @@ def attention_tp(xn, lp, cfg, positions, causal: bool, tp,
         else:
             k = _kv_heads(x, lp, "wk", cfg, tp, hl)
             v = _kv_heads(x, lp, "wv", cfg, tp, hl)
-            k = rope(k, positions, cfg.rope_theta).contiguous()
+            k = _rope(k, positions, cfg).contiguous()
         if prefill:
             o = attention_prefill(q, k, v, causal)
             if _kv_cut(cfg, tp):
@@ -268,13 +276,45 @@ def attention_tp(xn, lp, cfg, positions, causal: bool, tp,
     wq = TP.whole(lp["wq"], "wq", -1, tp)
     wo = TP.whole(lp["wo"], "wo", 0, tp)
     q = (rows @ wq.to(x.dtype)).reshape(b, sl, h, hd)
-    q = rope(q, positions.narrow(1, first, sl), cfg.rope_theta).contiguous()
+    q = _rope(q, None if positions is None else positions.narrow(
+        1, first, sl), cfg).contiguous()
     k, v = _kv_all(x, lp, cfg, tp, positions)
     if prefill:
         o = attention_prefill(q, k, v, causal, first)
     else:
         o = FlashAttention.apply(q, k, v, causal, first)
     y = TP.gather_rows(o.reshape(b, sl, -1) @ wo.to(o.dtype), 1, tp)
+    return (y, (k, v)) if prefill else y
+
+
+def cross_attention_tp(xn, memory, lp, cfg, tp, prefill: bool = False):
+    """Cross-attention over ``model`` from the normed decoder input xn
+    (b, s, d) to the encoder's memory (b, skv, d), without the residual:
+    q, k and v column-parallel over this rank's h/m heads (``xwq``,
+    ``xwk``, ``xwv``), the flash forward with no mask at sq != skv, and
+    ``xwo`` row-parallel. The memory is a replicated activation every
+    layer reads at its own heads, so it enters through
+    `tensor_parallel.copy_to_model` (the gradient that reaches the
+    encoder is the sum over the ranks' heads). With ``prefill`` the flash
+    forward alone and ``(y, (k, v))`` with k and v at this rank's heads,
+    the reference's cut of the cache (not gathered). Heads that do not
+    divide ``model`` raise ``ValueError``."""
+    b, s, _ = xn.shape
+    h, hd, m = cfg.num_heads, cfg.head_dim, tp.size
+    if h % m:
+        raise ValueError(f"cross-attention over model {m}: its {h} heads "
+                         f"do not divide")
+    hl = h // m
+    x = TP.copy_to_model(xn, tp)
+    mem = TP.copy_to_model(memory, tp)
+    q = (x @ lp["xwq"].to(x.dtype)).reshape(b, s, hl, hd).contiguous()
+    k = (mem @ lp["xwk"].to(x.dtype)).reshape(b, -1, hl, hd).contiguous()
+    v = (mem @ lp["xwv"].to(x.dtype)).reshape(b, -1, hl, hd).contiguous()
+    if prefill:
+        o = attention_prefill(q, k, v, False)
+    else:
+        o = FlashAttention.apply(q, k, v, False)
+    y = TP.reduce_from_model(o.reshape(b, s, -1) @ lp["xwo"].to(o.dtype), tp)
     return (y, (k, v)) if prefill else y
 
 

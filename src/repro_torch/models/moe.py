@@ -89,6 +89,12 @@ def param_specs(cfg: ModelConfig) -> dict:
 MOE_EXTRA_KEYS = ("router", "we_gate", "we_up", "we_down")
 
 
+def tp_context(cfg: ModelConfig, rules):
+    """The tensor-parallel context of ``rules`` for ``cfg``'s leaves (None
+    without rules or at ``model`` extent 1)."""
+    return TP.context(rules, param_specs(cfg))
+
+
 def top_k(probs, k: int):
     """The ``k`` largest along the last axis, largest first and, among
     equal values, the lower index first (``jax.lax.top_k``'s order, which
@@ -227,7 +233,7 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
             aux_weight: float = AUX_WEIGHT, rules=None):
     """The mean loss of this rank's rows; under ``rules`` with a ``model``
     extent above 1, tensor-parallel."""
-    tp = TP.context(rules, param_specs(cfg))
+    tp = tp_context(cfg, rules)
     logits, aux = forward(params, cfg, batch["tokens"], rules, tp)
     return L.xent_loss(logits, batch["labels"], T.vocab_tp(tp)) \
         + aux_weight * aux
@@ -243,7 +249,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int,
     ``model`` extent above 1, tensor-parallel (the module docstring)."""
     cd = TORCH_DTYPES[cfg.compute_dtype]
     b, s = tokens.shape
-    tp = TP.context(rules, param_specs(cfg))
+    tp = tp_context(cfg, rules)
     group = rules if tp is not None else None
     x = L.embed_tokens(params["embed"], tokens, cd, T.vocab_tp(tp))
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -259,7 +265,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, token,
                 rules=None):
     """One token for each of the b rows: the experts route b tokens, so
     their capacity is ``capacity(cfg, b)`` (at least 4)."""
-    tp = TP.context(rules, param_specs(cfg))
+    tp = tp_context(cfg, rules)
     group = rules if tp is not None else None
     pos = cache["length"]
     x = L.embed_tokens(params["embed"], token,

@@ -5,28 +5,31 @@ counts, init and loss of all seven families, and the serving entry points
 Prefill and decode run under ``torch.inference_mode``. ``vit`` has no
 serving path, as in the JAX package: asking it for one raises
 ``AttributeError``, as the reference's missing functions do. Under
-``rules`` whose ``model`` extent is above 1, a tensor-parallel family
-(`TENSOR_PARALLEL`) serves over ``model`` from this rank's slices of the
-params (`serving_shardings`; the FSDP leaves' ``wemb`` slices gathered
-where they are read: a stacked one a layer at a time, any other once a
-call) and a cache cut on ``kv_seq``; its logits are this rank's vocab
-columns where the vocab is cut (`greedy_token` takes the argmax). Every
-other family, and every family with no rules or ``model`` of extent 1,
-serves each layer whole.
+``rules`` whose ``model`` extent is above 1, every family trains, and
+each of the six that serve serves, over ``model`` (`TENSOR_PARALLEL`
+holds all seven) from this rank's slices of the params
+(`serving_shardings`; the FSDP leaves' ``wemb`` slices gathered where
+they are read: a stacked one a layer at a time, any other once a call)
+and its cut of the cache, as the cache specs cut it: positions on
+``kv_seq`` (the attention caches), the SSD heads and the x conv's
+columns on ``ssm_inner``, whisper's cross-attention k and v on
+``heads``; its logits are this rank's vocab columns where the vocab is
+cut (`greedy_token` takes the argmax). With no rules or ``model`` of
+extent 1, every family serves each layer whole.
 
 ``abstract_params``, ``abstract_cache`` and ``input_specs`` are the
 stand-ins the dry run (`repro_torch.launch.dryrun`) traces a step on, the
 port of the reference's ``ShapeDtypeStruct`` ones: tensors on the
 ``meta`` device (a shape and a dtype, no data) at the shape this rank
 holds under ``rules`` (``rules.sharding(...).local_shape``: dims mapped to
-dp axes cut; ``model``-mapped dims cut for the leaves and caches of a
-tensor-parallel family, whole for the ssm, hybrid, audio and vit
-families, as the port's layers compute them). Three differences from the
-reference's: integer inputs are int64, the port's index type (the
-reference's are int32); a cache's ``length`` is the host int the port's
-decode reads, set to the last position so that one decode step fits (the
-reference's is an int32 scalar); and a cache served over ``model`` keeps
-``max_seq``, a host int.
+dp axes cut, and ``model``-mapped dims of the leaves and caches of a
+tensor-parallel family, as the port's layers compute them). Three
+differences from the reference's: integer inputs are int64, the port's
+index type (the reference's are int32); a cache's ``length`` is the host
+int the port's decode reads, set to the last position so that one decode
+step fits (the reference's is an int32 scalar); and a cache with
+positions (a ``kv_seq`` dim) served over ``model`` keeps ``max_seq``, a
+host int.
 """
 from __future__ import annotations
 
@@ -56,9 +59,9 @@ _FAMILIES = {
 
 # the families whose layers run tensor-parallel over ``model`` in training
 # and serving (`repro_torch.dist.tensor_parallel`; moe's experts cut over
-# it too); the ssm, hybrid, audio and vit families compute each layer
-# whole on every rank of a model group
-TENSOR_PARALLEL = frozenset({"dense", "moe", "vlm"})
+# it too, the SSM's ``ssm_inner``): all seven. A family outside the set
+# would compute each layer whole on every rank of a model group.
+TENSOR_PARALLEL = frozenset(_FAMILIES)
 
 
 def tensor_parallel(cfg: ModelConfig) -> bool:
@@ -85,10 +88,10 @@ def init_params(cfg: ModelConfig, seed: int, device) -> dict:
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, rules=None):
-    """The loss of this rank's rows. ``rules`` reach the tensor-parallel
-    families (their layers over ``model``; moe's token groups are the dp
-    ranks' too); every other family computes each row on its own, the
-    same on any mesh."""
+    """The loss of this rank's rows. ``rules`` reach a tensor-parallel
+    family (its layers over ``model``; moe's token groups are the dp
+    ranks' too); a family outside `TENSOR_PARALLEL` computes each row on
+    its own, the same on any mesh."""
     if tensor_parallel(cfg):
         return family_module(cfg).loss_fn(params, cfg, batch, rules=rules)
     return family_module(cfg).loss_fn(params, cfg, batch)
@@ -97,8 +100,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, rules=None):
 def abstract_params(cfg: ModelConfig, rules) -> dict:
     """Every param leaf as a meta tensor of its dtype at this rank's local
     shape under ``rules``, for training and serving alike: cut over
-    ``model`` for a tensor-parallel family, whole over it for the
-    others."""
+    ``model`` for a tensor-parallel family (whole over it for a family
+    outside `TENSOR_PARALLEL`)."""
     return _abstract(param_specs(cfg), rules, model=tensor_parallel(cfg))
 
 
@@ -129,11 +132,12 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 
 def serving_tp(cfg: ModelConfig, rules):
     """The `tensor_parallel.ModelParallel` ``cfg``'s serving runs under
-    ``rules``: None for a family that serves each layer whole, and where
-    there are no rules or ``model`` has extent 1."""
+    ``rules`` (the family's ``tp_context``): None for a family that
+    serves each layer whole, and where there are no rules or ``model``
+    has extent 1."""
     if rules is None or not tensor_parallel(cfg):
         return None
-    return TP.context(rules, param_specs(cfg))
+    return family_module(cfg).tp_context(cfg, rules)
 
 
 def serving_shardings(cfg: ModelConfig, rules):
@@ -147,8 +151,13 @@ def serving_shardings(cfg: ModelConfig, rules):
             for k, ps in param_specs(cfg).items()}
 
 
-def _cache_meta(cache: dict, cfg: ModelConfig, rules, max_seq: int):
-    if serving_tp(cfg, rules) is not None:
+def _cache_meta(cache: dict, specs: dict, cfg: ModelConfig, rules,
+                max_seq: int):
+    """``cache`` with ``max_seq`` where it is served over ``model`` and
+    has positions (a ``kv_seq`` dim in its ``specs``: the SSM's state has
+    none)."""
+    if serving_tp(cfg, rules) is not None and any(
+            "kv_seq" in ps.logical for ps in specs.values()):
         cache["max_seq"] = max_seq
     return cache
 
@@ -156,8 +165,8 @@ def _cache_meta(cache: dict, cfg: ModelConfig, rules, max_seq: int):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None, rules=None) -> dict:
     """An empty cache of ``batch`` rows: every leaf zero, ``length`` 0;
-    under ``rules``, this rank's rows and, over ``model``, its block of
-    positions (`abstract_cache`'s shapes)."""
+    under ``rules``, this rank's rows and, over ``model``, its cut
+    (`abstract_cache`'s shapes)."""
     device = resolve(device)
     specs = cache_specs(cfg, batch, max_seq)
     shapes = {k: spec.shape for k, spec in specs.items()}
@@ -168,20 +177,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                                device=device)
              for name, spec in specs.items()}
     cache["length"] = 0
-    return _cache_meta(cache, cfg, rules, max_seq)
+    return _cache_meta(cache, specs, cfg, rules, max_seq)
 
 
 def abstract_cache(cfg: ModelConfig, rules, batch: int,
                    max_seq: int) -> dict:
     """The cache of ``batch`` rows and ``max_seq`` positions as meta
     tensors at this rank's local shapes (a tensor-parallel family's cut
-    on ``kv_seq`` over ``model`` where the spec cuts it); ``length`` is
-    ``max_seq - 1``, so the one decode step writes the last position,
-    which the last model rank holds."""
-    cache = _abstract(cache_specs(cfg, batch, max_seq), rules,
-                      model=tensor_parallel(cfg))
+    over ``model`` where the spec cuts it: ``kv_seq``, ``ssm_inner``,
+    ``heads``); ``length`` is ``max_seq - 1``, so the one decode step
+    writes the last position, which the last model rank holds."""
+    specs = cache_specs(cfg, batch, max_seq)
+    cache = _abstract(specs, rules, model=tensor_parallel(cfg))
     cache["length"] = max_seq - 1
-    return _cache_meta(cache, cfg, rules, max_seq)
+    return _cache_meta(cache, specs, cfg, rules, max_seq)
 
 
 def _tokens(rules, shape) -> torch.Tensor:

@@ -15,6 +15,29 @@ above the diagonal that exponent is positive, and once a chunk's summed
 |dt * A| passes about 88 it overflows to inf, and inf * 0 is NaN. Where the
 reference is finite both give the same values; where it is NaN (the
 published chunk of 256 at full width) the port stays finite.
+
+Training and serving take ``rules``: on a mesh whose ``model`` extent m is
+above 1 a rank holds ``ssm_heads / m`` of the SSD heads (the leaves the
+specs cut on ``ssm_inner``: ``wz``, ``wx`` and ``wdt`` column-parallel,
+``conv_x``, ``A_log``, ``D``, ``dt_bias`` and ``gate_norm`` its slices,
+``w_out`` row-parallel, ending in `tensor_parallel.reduce_from_model`);
+``ssd_chunked`` runs unchanged on the local heads, a batch dim of every
+einsum. ``wB``, ``wC``, ``conv_B`` and ``conv_C`` are whole on every rank:
+B and C are computed from the normed input, convolved and gated, and only
+then enter the model-parallel region (`tensor_parallel.copy_to_model`),
+so that those leaves' gradients are the sum over the ranks' heads. The
+reference's docstring calls the block communication-free except the
+out-projection's reduce; its GSPMD step adds a second reduction all the
+same, and so does the port: the gated norm is an RMS norm over the whole
+``d_inner``, so its mean of squares is the ranks' sums of squares summed
+over the group (`tensor_parallel.sum_over_model`, an all-reduce in the
+forward and in the backward) over the full ``d_inner``. In serving a
+rank's cache holds its heads' SSD state (b, h/m, n, p) and its
+``d_inner / m`` columns of the x conv's tail; the B and C tails are whole,
+each rank updating its own copy identically. The embedding and logits
+are vocab-parallel where the vocab divides m, whole elsewhere. Heads that
+do not divide m raise ``ValueError``. With no rules, or m = 1, the block
+is the plain one.
 """
 from __future__ import annotations
 
@@ -23,6 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.buckets import TORCH_DTYPES
+from repro_torch.dist import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ParamSpec
@@ -158,35 +182,72 @@ def _softplus(dt, bias):
     return torch.logaddexp(dt, torch.zeros_like(dt))
 
 
-def _gate_out(x, y, z, lp: dict, cfg: ModelConfig):
-    """The gated norm and the out-projection with the residual."""
+def tp_context(cfg: ModelConfig, rules):
+    """The tensor-parallel context of ``rules`` for ``cfg``'s leaves (None
+    without rules or at ``model`` extent 1)."""
+    return checked_heads(cfg, TP.context(rules, param_specs(cfg)))
+
+
+def checked_heads(cfg: ModelConfig, tp):
+    """``tp``, once the SSD heads are known to divide its ``model``
+    extent (no branch cuts a head: ``ValueError`` otherwise)."""
+    if tp is not None and cfg.ssm_heads % tp.size:
+        raise ValueError(f"the SSM over model {tp.size}: its "
+                         f"{cfg.ssm_heads} heads do not divide")
+    return tp
+
+
+def _gate_norm_tp(y, w, cfg: ModelConfig, tp):
+    """`layers.rmsnorm` over the whole ``d_inner`` of this rank's columns
+    y: the mean of squares from the group's summed sums of squares."""
+    dt = y.dtype
+    y = y.float()
+    ss = TP.sum_over_model(torch.sum(y * y, dim=-1, keepdim=True), tp)
+    y = y * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+    return (y * w.float()).to(dt)
+
+
+def _gate_out(x, y, z, lp: dict, cfg: ModelConfig, tp=None):
+    """The gated norm and the out-projection with the residual; with
+    ``tp``, the norm over the group's columns and ``w_out`` row-parallel."""
     cd = x.dtype
-    y = L.rmsnorm(y * F.silu(z.float()).to(cd), lp["gate_norm"],
-                  cfg.norm_eps)
-    return x + y @ lp["w_out"].to(cd)
+    g = y * F.silu(z.float()).to(cd)
+    if tp is None:
+        y = L.rmsnorm(g, lp["gate_norm"], cfg.norm_eps)
+        return x + y @ lp["w_out"].to(cd)
+    y = _gate_norm_tp(g, lp["gate_norm"], cfg, tp)
+    return x + TP.reduce_from_model(y @ lp["w_out"].to(cd), tp)
 
 
-def mamba_block(x, lp: dict, cfg: ModelConfig, *, prefill=False):
+def _heads(cfg: ModelConfig, tp) -> int:
+    return cfg.ssm_heads if tp is None else cfg.ssm_heads // tp.size
+
+
+def mamba_block(x, lp: dict, cfg: ModelConfig, *, prefill=False, tp=None):
     """Full-sequence block. x: (b, s, d) -> (b, s, d); with ``prefill``
     also the layer's cache entries: (x, (final SSD state, the last w-1
-    rows of the pre-conv x, B and C projections))."""
+    rows of the pre-conv x, B and C projections)). With ``tp``, this
+    rank's heads (the module docstring)."""
     b, s, d = x.shape
-    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    h, p = _heads(cfg, tp), cfg.ssm_head_dim
     cd = x.dtype
     xn = L.rmsnorm(x, lp["ssm_norm"], cfg.norm_eps)
-    z = xn @ lp["wz"].to(cd)
-    xi0 = xn @ lp["wx"].to(cd)
+    xc = xn if tp is None else TP.copy_to_model(xn, tp)
+    z = xc @ lp["wz"].to(cd)
+    xi0 = xc @ lp["wx"].to(cd)
     Bp0 = xn @ lp["wB"].to(cd)
     Cp0 = xn @ lp["wC"].to(cd)
-    dt = xn @ lp["wdt"].to(cd)
+    dt = xc @ lp["wdt"].to(cd)
     xi = F.silu(causal_conv(xi0, lp["conv_x"].to(cd)).float()).to(cd)
     Bp = F.silu(causal_conv(Bp0, lp["conv_B"].to(cd)).float()).to(cd)
     Cp = F.silu(causal_conv(Cp0, lp["conv_C"].to(cd)).float()).to(cd)
+    if tp is not None:
+        Bp, Cp = TP.copy_to_model(Bp, tp), TP.copy_to_model(Cp, tp)
     dt = _softplus(dt, lp["dt_bias"])
     A = -torch.exp(lp["A_log"].float())
     y, S = ssd_chunked(xi.reshape(b, s, h, p), dt, A, Bp, Cp, cfg.ssm_chunk)
     y = y + xi.reshape(b, s, h, p) * lp["D"].to(cd)[:, None]
-    out = _gate_out(x, y.reshape(b, s, -1), z, lp, cfg)
+    out = _gate_out(x, y.reshape(b, s, -1), z, lp, cfg, tp)
     if not prefill:
         return out
     w = cfg.ssm_conv
@@ -194,11 +255,12 @@ def mamba_block(x, lp: dict, cfg: ModelConfig, *, prefill=False):
 
 
 def mamba_decode_block(x, lp: dict, state, conv_cache: dict,
-                       cfg: ModelConfig):
+                       cfg: ModelConfig, tp=None):
     """x: (b, 1, d); state: (b, h, n, p); conv_cache: {"x", "B", "C"}
-    each (b, w-1, c). Returns (x', state', conv caches')."""
+    each (b, w-1, c). Returns (x', state', conv caches'). With ``tp``,
+    this rank's heads: its state (b, h/m, n, p) and x conv columns."""
     b = x.shape[0]
-    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    h, p = _heads(cfg, tp), cfg.ssm_head_dim
     cd = x.dtype
     xn = L.rmsnorm(x, lp["ssm_norm"], cfg.norm_eps)[:, 0]        # (b, d)
     z = xn @ lp["wz"].to(cd)
@@ -216,7 +278,7 @@ def mamba_decode_block(x, lp: dict, state, conv_cache: dict,
     A = -torch.exp(lp["A_log"].float())
     y, state = ssd_decode_step(xi.reshape(b, h, p), dt, A, Bp, Cp, state)
     y = y + xi.reshape(b, h, p) * lp["D"].to(cd)[:, None]
-    out = _gate_out(x, y.reshape(b, 1, -1), z[:, None], lp, cfg)
+    out = _gate_out(x, y.reshape(b, 1, -1), z[:, None], lp, cfg, tp)
     return out, state, {"x": cx, "B": cB, "C": cC}
 
 
@@ -224,16 +286,20 @@ def _stacked(params: dict) -> dict:
     return {k: params[k] for k in SSM_LAYER_KEYS if k in params}
 
 
-def forward(params: dict, cfg: ModelConfig, tokens):
+def forward(params: dict, cfg: ModelConfig, tokens, tp=None):
     x = L.embed_tokens(params["embed"], tokens,
-                       TORCH_DTYPES[cfg.compute_dtype])
+                       TORCH_DTYPES[cfg.compute_dtype], T.vocab_tp(tp))
     x = T.run_layers(x, _stacked(params),
-                     lambda x, lp: mamba_block(x, lp, cfg), cfg.remat)
-    return T.final_logits(x, params, cfg)
+                     lambda x, lp: mamba_block(x, lp, cfg, tp=tp), cfg.remat)
+    return T.final_logits(x, params, cfg, tp)
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
-    return L.xent_loss(forward(params, cfg, batch["tokens"]), batch["labels"])
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, rules=None):
+    """The mean loss of this rank's rows; under ``rules`` with a ``model``
+    extent above 1, tensor-parallel."""
+    tp = tp_context(cfg, rules)
+    return L.xent_loss(forward(params, cfg, batch["tokens"], tp),
+                       batch["labels"], T.vocab_tp(tp))
 
 
 CONV_KEYS = (("conv_x", "x"), ("conv_B", "B"), ("conv_C", "C"))
@@ -258,12 +324,12 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     }
 
 
-def prefill_layers(x, layers: list, cfg: ModelConfig):
+def prefill_layers(x, layers, cfg: ModelConfig, tp=None):
     """Mamba layers over the prompt, each keeping its cache entries:
     (x, [per layer (state, conv_x tail, conv_B tail, conv_C tail)])."""
     entries = []
     for lp in layers:
-        x, entry = mamba_block(x, lp, cfg, prefill=True)
+        x, entry = mamba_block(x, lp, cfg, prefill=True, tp=tp)
         entries.append(entry)
     return x, entries
 
@@ -277,33 +343,42 @@ def ssm_cache(entries: list, length: int) -> dict:
     return cache
 
 
-def decode_layers(x, layers: list, cache: dict, first: int, cfg):
+def decode_layers(x, layers, cache: dict, first: int, cfg, tp=None):
     """Mamba decode through ``layers``, the cache's layers ``first`` on;
     each layer's state and conv caches are written back in place."""
     for j, lp in enumerate(layers):
         i = first + j
         conv = {c: cache[name][i] for name, c in CONV_KEYS}
-        x, S, conv = mamba_decode_block(x, lp, cache["state"][i], conv, cfg)
+        x, S, conv = mamba_decode_block(x, lp, cache["state"][i], conv, cfg,
+                                        tp)
         cache["state"][i] = S
         for name, c in CONV_KEYS:
             cache[name][i] = conv[c]
     return x
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int):
+def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int,
+            rules=None):
     """Run the prompt through SSD, keeping each layer's final state and
-    conv tails (the state does not grow with ``max_seq``)."""
+    conv tails (the state does not grow with ``max_seq``); under
+    ``rules`` with a ``model`` extent above 1, this rank's heads and
+    vocab columns."""
     del max_seq
+    tp = tp_context(cfg, rules)
     x = L.embed_tokens(params["embed"], tokens,
-                       TORCH_DTYPES[cfg.compute_dtype])
-    x, entries = prefill_layers(x, T.layers_of(_stacked(params)), cfg)
+                       TORCH_DTYPES[cfg.compute_dtype], T.vocab_tp(tp))
+    x, entries = prefill_layers(x, T.serving_layers(_stacked(params)), cfg,
+                                tp)
     return (ssm_cache(entries, tokens.shape[1]),
-            T.final_logits(x[:, -1:], params, cfg))
+            T.final_logits(x[:, -1:], params, cfg, tp))
 
 
-def decode_step(params: dict, cfg: ModelConfig, cache: dict, token):
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, token,
+                rules=None):
+    tp = tp_context(cfg, rules)
     x = L.embed_tokens(params["embed"], token,
-                       TORCH_DTYPES[cfg.compute_dtype])
-    x = decode_layers(x, T.layers_of(_stacked(params)), cache, 0, cfg)
-    return (T.final_logits(x, params, cfg),
+                       TORCH_DTYPES[cfg.compute_dtype], T.vocab_tp(tp))
+    x = decode_layers(x, T.serving_layers(_stacked(params)), cache, 0, cfg,
+                      tp)
+    return (T.final_logits(x, params, cfg, tp),
             dict(cache, length=cache["length"] + 1))

@@ -14,7 +14,9 @@ is where an FSDP step gathers each layer's weights
 Training and serving take ``rules``: on a mesh whose ``model`` extent is
 above 1 the layers run tensor-parallel (`repro_torch.dist
 .tensor_parallel`) on this rank's slices of the model-cut leaves; with no
-rules, or ``model`` of extent 1, they are the plain whole layers.
+rules, or ``model`` of extent 1, they are the plain whole layers. The
+other families build on these blocks over ``model`` too (the hybrid's
+shared block, whisper's encoder and decoder, the ViT).
 
 Serving takes the f32 params as the reference's does and casts at each
 use. A cache is a dict of tensors and ``length``, a host int: the number
@@ -261,21 +263,6 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     }
 
 
-def stack_padded(ts: list, max_seq: int):
-    """Per-call (b, s, ...) tensors stacked along a new leading axis and
-    zero-padded to ``max_seq`` positions: (n, b, max_seq, ...). Raises
-    ``ValueError`` when ``max_seq < s``, as the reference's ``jnp.pad``
-    does on the negative pad."""
-    b, s = ts[0].shape[:2]
-    if max_seq < s:
-        raise ValueError(f"max_seq {max_seq} is shorter than the prompt's "
-                         f"{s} positions")
-    out = ts[0].new_zeros((len(ts), b, max_seq) + tuple(ts[0].shape[2:]))
-    for i, t in enumerate(ts):
-        out[i, :, :s] = t
-    return out
-
-
 def cache_block(rules, tp, max_seq: int) -> tuple[int, int]:
     """``(first, n)``: the positions [first, first + n) of a cache of
     ``max_seq`` that this rank holds: its block of max_seq / m where
@@ -288,11 +275,12 @@ def cache_block(rules, tp, max_seq: int) -> tuple[int, int]:
     return 0, max_seq
 
 
-def cache_first(cache: dict, tp):
-    """The global position of this rank's block of ``cache``'s positions,
-    or None where the cache is whole on every rank (no ``tp``, or a
-    ``max_seq`` that does not divide over ``model``)."""
-    n = cache["k"].shape[2]
+def cache_first(cache: dict, tp, key: str = "k"):
+    """The global position of this rank's block of the positions of
+    ``cache[key]`` (n, b, positions, ...), or None where the cache is
+    whole on every rank (no ``tp``, or a ``max_seq`` that does not divide
+    over ``model``)."""
+    n = cache[key].shape[2]
     if tp is None or n == cache["max_seq"]:
         return None
     return tp.rank * n
@@ -302,19 +290,21 @@ class PrefillCache:
     """The KV cache a prefill fills a layer at a time: this rank's block
     of positions (`cache_block`; every position without ``tp``), zero
     where the prompt does not reach, each layer's k and v (every
-    position) written into the part of it the prompt covers. Over
-    ``model`` the cache keeps ``max_seq``. Raises ``ValueError`` when
-    ``max_seq`` is shorter than the prompt, as the reference's
-    ``jnp.pad`` does on the negative pad."""
+    position) written into the part of it the prompt covers. ``layers``
+    is the number of attention calls that fill it (default
+    ``cfg.num_layers``). Over ``model`` the cache keeps ``max_seq``.
+    Raises ``ValueError`` when ``max_seq`` is shorter than the prompt, as
+    the reference's ``jnp.pad`` does on the negative pad."""
 
     def __init__(self, x, cfg: ModelConfig, max_seq: int, rules=None,
-                 tp=None):
+                 tp=None, layers=None):
         b, self.s = x.shape[:2]
         if max_seq < self.s:
             raise ValueError(f"max_seq {max_seq} is shorter than the "
                              f"prompt's {self.s} positions")
         self.first, n = cache_block(rules, tp, max_seq)
-        shape = (cfg.num_layers, b, n, cfg.num_kv_heads, cfg.head_dim)
+        shape = (cfg.num_layers if layers is None else layers, b, n,
+                 cfg.num_kv_heads, cfg.head_dim)
         self.k, self.v = x.new_zeros(shape), x.new_zeros(shape)
         self.extra = {} if tp is None else {"max_seq": max_seq}
         self.layers = 0

@@ -25,6 +25,9 @@ def param_specs(cfg: ModelConfig) -> dict:
     return T.param_specs(cfg)
 
 
+tp_context = T.tp_context      # the dense family's leaves
+
+
 def _embed(params: dict, cfg: ModelConfig, tokens, patch_embeds,
            vocab=None):
     cd = TORCH_DTYPES[cfg.compute_dtype]
@@ -47,7 +50,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, patch_embeds, tp=None):
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, rules=None):
-    tp = T.tp_context(cfg, rules)
+    tp = tp_context(cfg, rules)
     logits = forward(params, cfg, batch["tokens"], batch["patch_embeds"],
                      tp)
     return L.xent_loss(logits, batch["labels"], T.vocab_tp(tp))
@@ -61,7 +64,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int,
             patch_embeds=None, rules=None):
     """Patches, then the prompt. Raises ``ValueError`` when ``max_seq``
     is shorter than ``num_patches + s_text``, as the reference does."""
-    vocab = T.vocab_tp(T.tp_context(cfg, rules))
+    vocab = T.vocab_tp(tp_context(cfg, rules))
     return T.prefill_embedded(_embed(params, cfg, tokens, patch_embeds,
                                      vocab), params, cfg, max_seq, rules)
 

@@ -150,7 +150,8 @@ class RankCapture:
     it to global rank 0, which receives exactly those flats, each at its
     own size, and rebuilds each global leaf from its cuts. A rank with no
     share (a model index above 0 of a family whose layers are whole over
-    ``model``: ssm, hybrid, audio, vit) sends nothing; under moe's expert
+    ``model``, were one taken out of ``registry.TENSOR_PARALLEL``) sends
+    nothing; under moe's expert
     parallelism every rank sends its experts' slices. A leaf cut nowhere
     is taken from rank 0's own reduced leaf. ``marks`` lists what this rank contributed at the last call, as
     (leaf, ((dim, first, end), ...)), the cuts along which its slice was

@@ -27,9 +27,10 @@ gradient, is ever live, and nothing is gathered after the update. The
 reduced slices are the capture point: each rank returns the ones it
 owns. At n = 1 the step runs today's kernels in today's order.
 
-For a tensor-parallel family (`registry.TENSOR_PARALLEL`) on a mesh whose
-``model`` extent m is above 1, each rank holds its model slice of every
-leaf the spec cuts over ``model``; the forward and backward run the
+For a tensor-parallel family (`registry.TENSOR_PARALLEL`: all seven) on a
+mesh whose ``model`` extent m is above 1, each rank holds its model slice
+of every leaf the spec cuts over ``model`` (heads, kv heads, ff, vocab,
+experts, the SSM's ``ssm_inner``); the forward and backward run the
 layers of `repro_torch.dist.tensor_parallel` on those slices, and the
 dp reduce-scatter, the update and the all-gather above run on them as on
 whole leaves (the ZeRO-1 dim is another dim than the model cut). The
@@ -68,7 +69,8 @@ def state_sharding(cfg: ModelConfig, rules) -> StateSharding:
 
 def model_size(cfg: ModelConfig, rules) -> int:
     """The ``model`` extent ``cfg``'s layers are split over under
-    ``rules``: 1 for a family that computes each layer whole."""
+    ``rules`` (1 for a family outside `registry.TENSOR_PARALLEL`, which
+    would compute each layer whole)."""
     if rules is None or not registry.tensor_parallel(cfg):
         return 1
     return rules.mesh.shape.get("model", 1)

@@ -249,7 +249,8 @@ def test_stand_ins_match_the_references(ref, port, arch):
     want, got = ref[arch], port[arch]
     tp = port[arch + "/tp"]
     assert tp == (arch in ("tinyllama-1.1b", "granite-34b", "arctic-480b",
-                           "llava-next-mistral-7b", "vit-h-14"))
+                           "whisper-medium", "llava-next-mistral-7b",
+                           "vit-h-14"))
     assert port["coords"] == {"data": 0, "model": 0}
     assert set(got) == set(want) - {"fsdp"}
     assert port[arch + "/step"] == 0

@@ -6,8 +6,9 @@ step over ``model`` under ``ShardingRules(mesh, fsdp=cfg.fsdp)``, as the
 reference's dry run does: each rank's params cut over ``model`` (and a
 ``wemb`` dim over the dp axes under FSDP), the cache cut on ``kv_seq``,
 ``"model": "tp"`` in the record, rank 0 and the last model rank traced
-and the larger term of each kept. An ssm cell stays whole over
-``model``. Reduced widths at shapes the (16, 16) mesh divides; the fake
+and the larger term of each kept. An ssm cell runs over ``model`` too,
+its SSD heads cut. Reduced widths at shapes the (16, 16) mesh divides
+(mamba2 at 16 SSD heads of 8); the fake
 worlds run in a subprocess, so that no xdist worker keeps a default
 process group.
 """
@@ -30,7 +31,9 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import fake_world, make_production_mesh
 from repro_torch.models import registry
 real = C.get
-C.get = lambda name: real(name).reduced()      # reduced widths
+# reduced widths; mamba2 at 16 SSD heads of 8, so that they divide 16
+OVER = {"mamba2-2.7b": {"ssm_head_dim": 8}}
+C.get = lambda name: real(name).reduced(**OVER.get(name, {}))
 shapes = {"p": ShapeConfig("p", 256, 32, "prefill"),
           "d": ShapeConfig("d", 256, 32, "decode")}
 dryrun.SHAPES = dict(dryrun.SHAPES, **shapes)
@@ -152,14 +155,29 @@ def test_tp_serving_stand_ins_are_rank_local(traced, arch, multi):
 
 @pytest.mark.parametrize("multi", [False, True])
 def test_ssm_serving_cell_stays_replicated(traced, multi):
-    """mamba2's serving cells keep each layer whole over model: traced
-    for rank 0 alone, its params and cache whole over model."""
+    """mamba2's serving cells run over model (they kept each layer whole
+    before the ssm family ran tensor-parallel): ``"model": "tp"``, traced
+    for rank 0 and the last model rank, its leaves cut on ``ssm_inner``
+    and vocab over model, B and C's whole, and its cache's SSD heads and
+    x conv columns cut (no positions, so no ``max_seq``)."""
     for shape in ("p", "d"):
         cell = traced["cells"][f"mamba2-2.7b/{shape}/{multi}"]
-        assert cell["status"] == "ok" and cell["model"] == "replicated"
+        assert cell["status"] == "ok" and cell["model"] == "tp"
+        assert cell["collective_s"] > 0
         assert [r for a, s, m, r in traced["traced"]
                 if a == "mamba2-2.7b-smoke" and s == shape
-                and m == multi] == [0]
+                and m == multi] == [0, 15]
     got = traced["shapes"][f"mamba2-2.7b/{multi}"]
-    assert got["params"] == {k: v for k, v in got["global"].items()}
+    cut = {k for k, v in got["params"].items() if v != got["global"][k]}
+    assert cut == {"embed", "unembed", "wz", "wx", "wdt", "conv_x",
+                   "A_log", "D", "dt_bias", "gate_norm", "w_out"}
+    for k in cut:
+        assert sum(a != b for a, b in zip(got["params"][k],
+                                          got["global"][k])) == 1
+    dp = 32 if multi else 16
+    L, h, din = got["global"]["A_log"][0], got["global"]["A_log"][1], \
+        got["global"]["gate_norm"][1]
+    assert got["cache"]["state"][:3] == [L, 32 // dp, h // 16]
+    assert got["cache"]["conv_x"] == [L, 32 // dp, 3, din // 16]
+    assert got["cache"]["conv_B"][1:3] == [32 // dp, 3]
     assert "max_seq" not in got["cache"]
