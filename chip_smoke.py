@@ -68,7 +68,13 @@ Phases, in order; any failed check raises and the script exits nonzero:
              and mamba2 and whisper at phase 8's cut and 2 layers: one
              microbatch's loss and gradients, 2 train steps, then phase
              9's prefill and 8 greedy decode steps under that mesh's
-             rules bitwise the same with no rules.
+             rules bitwise the same with no rules. After the runs, the
+             state gather over ranks (``RankStateGather``, the state_fn
+             of a checkpointer over ranks) on the rules run's state:
+             bitwise ``checkpoint_from_state``, one pack launch a tree,
+             its added peak device bytes at most one tree's; both times,
+             on a ``ranks gather`` line beside the card's name and power
+             limit.
 4c. dryrun — the port's dry run (``python -m repro_torch.launch.dryrun
              --arch tinyllama-1.1b``, and again with ``--multi-pod``) in
              two subprocesses that see no card (a fake world of 256 or
@@ -1110,8 +1116,9 @@ def phase_main(cfg, steps: int = 6) -> tuple[dict, dict]:
 # world (NCCL refuses two ranks on one card, and a gloo world would time
 # host copies), held bitwise against today's train() on the same cut:
 # tinyllama-1.1b at full width, RANKS_LAYERS of its 22 layers, MAIN_RUN's
-# batch and shadow, a failure at step 4. The n > 1 schedules are held on
-# gloo ranks by the CPU tests.
+# batch and shadow, a failure at step 4; then the state gather that hands
+# a checkpointer over ranks the whole state, on that run's state. The
+# n > 1 schedules are held on gloo ranks by the CPU tests.
 RANKS_LAYERS, RANKS_STEPS = 2, 6
 
 
@@ -1273,6 +1280,64 @@ def families_at_model_one(mesh) -> dict:
     return out
 
 
+def gather_on_card(cut, rules, state) -> dict:
+    """The state gather over ranks (`RankStateGather`, the state_fn of a
+    checkpointer over ranks) on the one-rank NCCL mesh, after a step:
+    bitwise `checkpoint_from_state`, one pack launch a tree, and its added
+    peak device bytes at most one tree's share (here the whole tree).
+    Times the one call of each that the check makes, host clock from a
+    synchronised card to the host tensors."""
+    from repro_torch.core.recovery import checkpoint_from_state
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import RankStateGather
+    from repro_torch.train.step import state_sharding
+    t_check = time.perf_counter()
+    trees = ("params", "mu", "nu")
+    gather = RankStateGather(state_sharding(cut, rules),
+                             torch.device("cuda"))
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = gather(state)
+    torch.cuda.synchronize()
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    added = torch.cuda.max_memory_allocated() - base
+    packs = ops.launch_counts()["bucket_pack"]
+    t0 = time.perf_counter()
+    want = checkpoint_from_state(state)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(packs == len(trees),
+          f"ranks: gather: {packs} pack launches, want one a tree")
+    check(got["step"] == want["step"] and all(
+        got[t].keys() == want[t].keys() for t in trees),
+        "ranks: gather: not the checkpoint's leaves")
+    for t in trees:
+        for k, x in want[t].items():
+            check(got[t][k].device.type == "cpu"
+                  and got[t][k].dtype == x.dtype
+                  and torch.equal(got[t][k], x),
+                  f"ranks: gather: {t}[{k}] not bitwise "
+                  f"checkpoint_from_state")
+    largest = max(sum(x.numel() * x.element_size()
+                      for x in getattr(state, t).values()) for t in trees)
+    check(0 < added <= largest,
+          f"ranks: gather: added peak {added} B, one tree is {largest} B")
+    out = {"bitwise_equal": True, "pack_launches": packs,
+           "gather_ms": gather_ms, "checkpoint_from_state_ms": plain_ms,
+           "added_peak_bytes": added, "largest_tree_bytes": largest,
+           "check_s": time.perf_counter() - t_check,
+           "card": card_name_power()}
+    print(f"ranks gather: RankStateGather on the one-rank NCCL mesh, "
+          f"{cut.name} {cut.num_layers}L, bitwise checkpoint_from_state, "
+          f"{packs} pack launches (one a tree); {out['gather_ms']:.2f} ms "
+          f"vs checkpoint_from_state {out['checkpoint_from_state_ms']:.2f} "
+          f"ms; added peak device bytes {added} (largest tree {largest}); "
+          f"the check {out['check_s']:.2f} s; {out['card']}", flush=True)
+    return out
+
+
 def phase_ranks(cfg) -> dict:
     import shutil
     import tempfile
@@ -1326,6 +1391,8 @@ def phase_ranks(cfg) -> dict:
                   f"ranks: {label}: launches {launches} (wgmma {want})")
             runs[label] = dict(state=state, stats=stats, ckpt=ckpt,
                                launches=launches)
+        gather = gather_on_card(cut, ShardingRules(mesh),
+                                runs["rules"]["state"])
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -1347,7 +1414,8 @@ def phase_ranks(cfg) -> dict:
            "step_ms": {k: r["stats"].steady_iter * 1e3
                        for k, r in runs.items()},
            "launches": {k: r["launches"] for k, r in runs.items()},
-           "bitwise_equal": True, "serving_at_model_one": serve_one,
+           "bitwise_equal": True, "gather": gather,
+           "serving_at_model_one": serve_one,
            "families_at_model_one": fam_one, "card": card_name_power()}
     print(f"ranks: one-rank NCCL train(rules=) vs train(), {cut.name} "
           f"{cut.num_layers}L: step {out['step_ms']['rules']:.2f} vs "

@@ -283,6 +283,25 @@ class NamedSharding:
                                             ("model",)))
                 if k > 1]
 
+    def owned_cuts(self, coords: dict, shape) -> Optional[tuple]:
+        """The slice of a leaf of ``shape`` that the rank at mesh
+        coordinates ``coords`` sends where each element is sent once: its
+        cuts ((dim, first, end), ...) (empty: the whole leaf), or None
+        where the rank is not the first along an axis that cuts nothing
+        (that first rank sends the same slice)."""
+        cuts = self._cuts()
+        along = {a for _, _, axes in cuts for a in axes}
+        if any(i for a, i in coords.items() if a not in along):
+            return None
+        out = []
+        for d, k, axes in cuts:
+            j = 0
+            for a in axes:
+                j = j * self.mesh.shape[a] + coords[a]
+            s = shape[d] // k
+            out.append((d, j * s, (j + 1) * s))
+        return tuple(out)
+
     def local_shape(self, shape) -> tuple:
         shape = list(shape)
         for d, k, _ in self._cuts():

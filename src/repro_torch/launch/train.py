@@ -25,9 +25,10 @@ GPU), and so are ``--max-lag-steps`` (the async shadow's lag bound) and
 .make_production_mesh`: 256 or 512 ranks, one process per rank, as
 ``torchrun`` starts them; each process joins the group ``torchrun``
 describes) with ``ShardingRules(mesh, fsdp=cfg.fsdp)``, the data-parallel
-path of ``train(rules=)``: global rank 0 hosts the checkpointer, which
-over ranks is Checkmate or none, and prints the report; the other ranks
-print nothing. In a world of another size (one process) they raise the
+path of ``train(rules=)``: global rank 0 hosts the checkpointer (any
+``--checkpointer``: a copy-persist baseline reads the whole state
+gathered from every rank's slices) and prints the report; the other
+ranks print nothing. In a world of another size (one process) they raise the
 mesh's ``ValueError``.
 
 `run` does the work and returns the report with the run's objects;

@@ -20,7 +20,12 @@ reduced slices its reduce-scatter (and, for a tensor-parallel family, its
 model cut) left it, a dim held whole is sent by the first rank along it
 alone, and each rank with a share sends it to rank 0, which assembles
 the bucket flats, so every reduced element reaches the shadow exactly
-once.
+once. A checkpointer's ``state_fn`` is the state gather
+(`RankStateGather`): each rank packs its slices of params, mu and nu, a
+tree at a time, and rank 0 assembles the whole state on its host. Only
+rank 0's checkpointer knows when it reads the state (a baseline at its
+frequency, Checkmate at a resync), so after each step the other ranks
+wait on rank 0's word: send your slices, or go on.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ from repro_torch.core.recovery import (FailurePlan, broadcast_checkpoint,
 from repro_torch.core.shadow import ShadowCluster
 from repro_torch.data.synthetic import SyntheticStream, device_batch
 from repro_torch.device import resolve
-from repro_torch.dist.sharding import (ShardingRules, unravel, dp_axes,
+from repro_torch.dist.sharding import (ShardingRules, unravel,
                                        make_smoke_mesh)
 from repro_torch.kernels import ops
 from repro_torch.optim.functional import OptimizerConfig, TrainState
@@ -166,16 +171,9 @@ class RankCapture:
         mesh = sharding.mesh
         self.group = mesh.mesh_group
         self.ranks = mesh.ranks
-        dp = dp_axes(mesh)
-        extents = [mesh.shape[a] for a in mesh.axis_names]
         # each mesh rank's share, in mesh order
-        self.plans = []
-        for i in range(mesh.size):
-            c = dict(zip(mesh.axis_names, unravel(i, extents)))
-            a = 0
-            for ax in dp:
-                a = a * mesh.shape[ax] + c[ax]
-            self.plans.append(self._plan(a, c.get("model", 0)))
+        self.plans = _shares(sharding.state, sharding.shapes, mesh,
+                             whole=False)
         self.sizes = [sum(e[3] for e in plan) for plan in self.plans]
         self.index = mesh.ranks.index(dist.get_rank())
         self.whole = [k for k, z in sharding.state.items()
@@ -185,27 +183,6 @@ class RankCapture:
             else None
         self.marks: list = []
         self.received = 0
-
-    def _plan(self, a: int, b: int) -> list:
-        """(leaf, cuts, offset, size) of what the rank at dp index ``a``
-        and model index ``b`` sends."""
-        plan, off = [], 0
-        for k, z in self.sh.state.items():
-            if z.n == 1 and z.m == 1:
-                continue
-            if (z.n == 1 and a) or (z.m == 1 and b):
-                continue
-            shape, cuts = list(self.sh.shapes[k]), []
-            for d, k_, i in ((z.dim, z.n, a), (z.model_dim, z.m, b)):
-                if k_ > 1:
-                    s = shape[d] // k_
-                    cuts.append((d, i * s, (i + 1) * s))
-            size = math.prod(self.sh.shapes[k])
-            for d, lo, hi in cuts:
-                size = size // shape[d] * (hi - lo)
-            plan.append((k, tuple(cuts), off, size))
-            off += size
-        return plan
 
     def __call__(self, owned: dict) -> Optional[dict]:
         mine = self.plans[self.index]
@@ -228,19 +205,12 @@ class RankCapture:
         _wait([dist.P2POp(dist.irecv, f, self.ranks[i], self.group)
                for i, f in recv])
         self.received = sum(f.numel() for _, f in recv)
-        full = {k: owned[k] for k in self.whole}
+        full = {k: owned[k] if k in self.whole else
+                torch.empty(s, dtype=torch.float32, device=self.device)
+                for k, s in self.sh.shapes.items()}
         for plan, f in zip(self.plans, flats):
-            for k, cuts, off, size in plan:
-                if k not in full:
-                    full[k] = torch.empty(self.sh.shapes[k],
-                                          dtype=torch.float32,
-                                          device=self.device)
-                idx = [slice(None)] * len(self.sh.shapes[k])
-                for d, lo, hi in cuts:
-                    idx[d] = slice(lo, hi)
-                dst = full[k][tuple(idx)]
-                dst.copy_(f[off:off + size].reshape(dst.shape))
-        return self.inner({k: full[k] for k in self.sh.shapes})
+            _place(full, plan, f)
+        return self.inner(full)
 
 
 def _wait(p2p: list) -> None:
@@ -248,6 +218,103 @@ def _wait(p2p: list) -> None:
     if p2p:
         for req in dist.batch_isend_irecv(p2p):
             req.wait()
+
+
+def _shares(shardings: dict, shapes: dict, mesh, whole: bool) -> list:
+    """Each mesh rank's share of a tree laid out by ``shardings`` (leaf ->
+    `NamedSharding`), in mesh order: (leaf, cuts, offset, size) of each
+    slice it sends (`NamedSharding.owned_cuts`), at its offset in the
+    rank's flat. A leaf whole on every rank is left out unless ``whole``
+    (then mesh rank 0 sends it)."""
+    names = mesh.axis_names
+    extents = [mesh.shape[a] for a in names]
+    plans = []
+    for i in range(mesh.size):
+        coords = dict(zip(names, unravel(i, extents)))
+        plan, off = [], 0
+        for k, z in shardings.items():
+            if not whole and z.n == 1 and z.m == 1:
+                continue
+            cuts = z.owned_cuts(coords, shapes[k])
+            if cuts is None:
+                continue
+            size = math.prod(shapes[k])
+            for d, lo, hi in cuts:
+                size = size // shapes[k][d] * (hi - lo)
+            plan.append((k, cuts, off, size))
+            off += size
+        plans.append(plan)
+    return plans
+
+
+def _place(tree: dict, plan: list, flat: torch.Tensor) -> None:
+    """Copy each slice of ``plan`` out of ``flat`` (on any device) into
+    its place in the whole leaves of ``tree``: one copy a slice, straight
+    into a leaf where the slice is contiguous in it."""
+    for k, cuts, off, size in plan:
+        idx = [slice(None)] * tree[k].dim()
+        for d, lo, hi in cuts:
+            idx[d] = slice(lo, hi)
+        dst = tree[k][tuple(idx)]
+        dst.copy_(flat[off:off + size].view(dst.shape))
+
+
+class RankStateGather:
+    """The whole trainer state on global rank 0's host, from every rank's
+    slices: over ranks, what `checkpoint_from_state` gives on one rank
+    (params, mu and nu as whole host tensors, and the step), the
+    ``state_fn`` of rank 0's checkpointer.
+
+    ``sharding`` is the step's `StateSharding`: params travel by their
+    param sharding, mu and nu by ``sharding.state`` (ZeRO-1), each element
+    once (`NamedSharding.owned_cuts`). For each tree every rank with a
+    share packs it into one flat (one pack launch) and sends it to rank
+    0, which copies its own flat and then each peer's, received one at a
+    time, into the whole leaves on the host. So beyond the trainer's state
+    rank 0's device holds one rank's share of one tree at a time, and any
+    other rank's one flat of its own share. Collective over the mesh;
+    returns None off rank 0.
+    """
+
+    def __init__(self, sharding, device: torch.device):
+        mesh = sharding.mesh
+        self.shapes = sharding.shapes
+        self.device = device
+        self.group = mesh.mesh_group
+        self.ranks = mesh.ranks
+        self.index = mesh.ranks.index(dist.get_rank())
+        self.plans = {"params": _shares(sharding.params, self.shapes, mesh,
+                                        whole=True)}
+        self.plans["mu"] = self.plans["nu"] = _shares(
+            sharding.state, self.shapes, mesh, whole=True)
+
+    def __call__(self, state: TrainState) -> Optional[dict]:
+        out = {"step": int(state.step)}
+        for tree, plans in self.plans.items():
+            leaves = getattr(state, tree)
+            dtype = next(iter(leaves.values())).dtype
+            mine = plans[self.index]
+            flat = None
+            if mine:
+                flat = alloc_flat(sum(e[3] for e in mine), dtype, self.device)
+                ops.pack_bucket([leaves[k].reshape(-1) for k, *_ in mine],
+                                [off for _, _, off, _ in mine], flat)
+            if self.index:
+                if flat is not None:
+                    _wait([dist.P2POp(dist.isend, flat, 0, self.group)])
+                continue
+            whole = out[tree] = {k: torch.empty(s, dtype=dtype)
+                                 for k, s in self.shapes.items()}
+            for i, plan in enumerate(plans):
+                if i and plan:
+                    flat = alloc_flat(sum(e[3] for e in plan), dtype,
+                                      self.device)
+                    _wait([dist.P2POp(dist.irecv, flat, self.ranks[i],
+                                      self.group)])
+                if plan:
+                    _place(whole, plan, flat)
+                flat = None              # free it before the next peer's
+        return out if self.index == 0 else None
 
 
 def train(cfg: ModelConfig, *,
@@ -285,9 +352,11 @@ def train(cfg: ModelConfig, *,
     ``train`` with the same arguments, in its own process; global rank 0
     hosts the checkpointer (``checkpointer`` or the one ``channel``
     builds) and the other ranks pass no ``checkpointer`` (they ignore
-    ``channel``). There the checkpointer is Checkmate or none: a
-    copy-persist baseline would need every rank's state at its own
-    moments, which is not ported. ``stats.losses`` are the global losses;
+    ``channel``). Any checkpointer runs there: its ``state_fn`` gathers
+    the whole state from every rank's slices to rank 0's host
+    (`RankStateGather`), and the other ranks follow rank 0's word after
+    each step (send their slices, or go on), each booking the wall time
+    of that exchange as its stall. ``stats.losses`` are the global losses;
     the returned state is this rank's slices.
     ``elastic_rules`` is the elastic-restart path (`repro_torch.core
     .elastic`): rules for the post-failure mesh, or a callable
@@ -414,6 +483,10 @@ def train(cfg: ModelConfig, *,
     return state, stats
 
 
+# rank 0's word to the other ranks after a step (`_train_over_ranks`)
+_DONE, _GATHER = 0, 1
+
+
 def _train_over_ranks(cfg: ModelConfig, *, steps, batch, seq, opt, lr_fn,
                       checkpointer, channel, shadow_nodes, shadow_async,
                       failure_plan, seed, straggler_ema, straggler_factor,
@@ -432,36 +505,61 @@ def _train_over_ranks(cfg: ModelConfig, *, steps, batch, seq, opt, lr_fn,
     specs = step_fn.sharding
     layout = build_buckets([(k, specs.shapes[k], "float32")
                             for k in state.params])
-    params, mu, nu = specs.full(state.params, state.mu, state.nu)
     error = None
     if not rank0 and checkpointer is not None:
         error = "over ranks only global rank 0 hosts a checkpointer"
     elif rank0 and channel is not None and checkpointer is not None:
         error = "pass either checkpointer= or channel=, not both"
-    elif rank0:
-        if channel is not None:
-            shadow = ShadowCluster(layout, opt, n_nodes=shadow_nodes,
-                                   async_mode=shadow_async, device=device)
-            shadow.bootstrap(params, mu, nu, state.step)
-            checkpointer = CheckmateCheckpointer(shadow, channel=channel)
+    elif rank0 and channel is None:
         checkpointer = checkpointer or NoCheckpointer()
-        if not (checkpointer.consumes_grads
-                or isinstance(checkpointer, NoCheckpointer)):
-            error = (f"{type(checkpointer).__name__} over ranks: only "
-                     f"Checkmate or no checkpointer is ported")
-    del params, mu, nu
     # every rank learns every rank's error (all raise together) and rank
-    # 0's capture: whether its checkpointer consumes gradients, and on
-    # the host or the card
+    # 0's plan: whether it builds Checkmate's shadow from ``channel``,
+    # whether its checkpointer consumes gradients (on the host or the
+    # card) and whether it may read the state (then the others follow its
+    # word after every step)
+    build = rank0 and channel is not None and error is None
+    ch = channel if build else getattr(checkpointer, "channel", None)
+    consumes = build or getattr(checkpointer, "consumes_grads", False)
+    reads = build or (checkpointer is not None
+                      and not isinstance(checkpointer, NoCheckpointer))
     flags = [None] * len(mesh.ranks)
     dist.all_gather_object(flags, (
-        error, bool(getattr(checkpointer, "consumes_grads", False)),
-        not getattr(getattr(checkpointer, "channel", None), "device_flats",
-                    False)), group=mesh.mesh_group)
+        error, build, bool(consumes), not getattr(ch, "device_flats", False),
+        reads), group=mesh.mesh_group)
     errors = [f[0] for f in flags if f[0] is not None]
     if errors:
         raise ValueError(errors[0])
-    _, consumes, host = flags[0]
+    _, build, consumes, host, reads = flags[0]
+    gather = RankStateGather(specs, device) if reads else None
+    if build:                            # rank 0's shadow from the whole state
+        whole = gather(state)
+        if rank0:
+            shadow = ShadowCluster(layout, opt, n_nodes=shadow_nodes,
+                                   async_mode=shadow_async, device=device)
+            shadow.bootstrap(whole["params"], whole["mu"], whole["nu"],
+                             whole["step"])
+            checkpointer = CheckmateCheckpointer(shadow, channel=channel)
+        del whole
+    word = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def say(w: int):
+        """Rank 0's word to the others: _GATHER or _DONE."""
+        word.fill_(w)
+        dist.broadcast(word, src=0, group=rules.mesh.mesh_group)
+
+    def state_fn() -> dict:
+        say(_GATHER)
+        return gather(state)
+
+    def follow() -> float:
+        """Another rank's side of a step's exchange: send its slices at
+        each _GATHER until _DONE; returns the exchange's wall time."""
+        t = time.perf_counter()
+        while True:
+            dist.broadcast(word, src=0, group=rules.mesh.mesh_group)
+            if int(word.item()) == _DONE:
+                return time.perf_counter() - t
+            gather(state)
 
     def make_capture(step_fn):
         if not consumes:
@@ -505,6 +603,8 @@ def _train_over_ranks(cfg: ModelConfig, *, steps, batch, seq, opt, lr_fn,
                         checkpointer.shadow, restored, device=device))
                 step_fn = build_train_step(cfg, opt, lr_fn, rules)
                 capture = make_capture(step_fn)
+                if reads:
+                    gather = RankStateGather(step_fn.sharding, device)
             restored = broadcast_checkpoint(restored, rules.mesh)
             state = state_from_checkpoint(restored, device, rules, cfg)
             step = int(restored["step"])
@@ -538,7 +638,12 @@ def _train_over_ranks(cfg: ModelConfig, *, steps, batch, seq, opt, lr_fn,
         if rank0:
             stall = checkpointer.on_step(StepEvent(
                 step=step, flats=flats, lr=metrics["lr"],
-                grad_scale=metrics["grad_scale"], iter_time=iter_time))
+                grad_scale=metrics["grad_scale"], iter_time=iter_time,
+                state_fn=state_fn if reads else None))
+            if reads:
+                say(_DONE)
+        elif reads:
+            stall = follow()
         stats.stall_times.append(stall)
         ob.metrics.counter("train_steps_total", "Completed iterations").inc(1)
         if step_hook is not None:

@@ -402,5 +402,7 @@ def train_cli(rank, out_dir, argv):
     if rank == 0:
         with open(os.path.join(out_dir, "report.json"), "w") as f:
             json.dump(r.report, f)
+        with open(os.path.join(out_dir, "stall_stages.json"), "w") as f:
+            json.dump(r.checkpointer.stall_stages, f)
     else:
         assert r.report is None and r.checkpointer is None

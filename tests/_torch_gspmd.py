@@ -6,6 +6,7 @@ tensor-parallel and expert-parallel tests (no JAX in this process).
 each step's loss, grad norm and gathered gradients, the final state and
 each device's ``addressable_shards`` of it, at f32 compute, 2
 microbatches, ``steps`` steps, AdamW at ``eps`` with a clip of 0.5.
+`start_script` starts another script on the same devices.
 """
 import os
 import subprocess
@@ -56,15 +57,27 @@ np.savez(sys.argv[1], **out)
 """
 
 
-def run_reference(path: str, cases: dict, eps: float, steps: int) -> str:
-    """The reference's run of ``cases`` ({tag: (arch, overrides of
-    .reduced())}) dumped to ``path``; returns ``path``."""
+def _env() -> dict:
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def run_reference(path: str, cases: dict, eps: float, steps: int) -> str:
+    """The reference's run of ``cases`` ({tag: (arch, overrides of
+    .reduced())}) dumped to ``path``; returns ``path``."""
     out = subprocess.run(
         [sys.executable, "-c",
          textwrap.dedent(REFERENCE % (eps, cases, steps)), path],
-        capture_output=True, text=True, env=env, timeout=600)
+        capture_output=True, text=True, env=_env(), timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     return path
+
+
+def start_script(script: str, *args: str) -> subprocess.Popen:
+    """``script`` started in a subprocess on the same four forced host
+    devices, with ``args`` as its ``sys.argv[1:]`` (the caller waits)."""
+    return subprocess.Popen([sys.executable, "-c", textwrap.dedent(script),
+                             *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=_env())

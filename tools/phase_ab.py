@@ -3,7 +3,8 @@
     python3 tools/phase_ab.py PHASES OLD NEW NEW OLD
 
 ``PHASES`` is a comma-separated list of ``kernels`` (phase 2: every
-kernel checked against its plain version, then timed), ``dryrun`` (phase
+kernel checked against its plain version, then timed), ``ranks`` (phase
+4b, which opens a one-rank NCCL world and closes it), ``dryrun`` (phase
 4c), ``families`` (phase 8), ``serving`` (phase 9) and ``benchmarks``
 (phase 10); each other argument is the root of a checkout of this
 repository (for example ``git archive <commit> | tar -x -C build/old``).
@@ -40,7 +41,8 @@ def kernels():
     cs.time_kernels(dev, cfg, errs)
 
 
-run = {"kernels": kernels, "dryrun": lambda: cs.phase_dryrun(cfg),
+run = {"kernels": kernels, "ranks": lambda: cs.phase_ranks(cfg),
+       "dryrun": lambda: cs.phase_dryrun(cfg),
        "families": cs.phase_families, "serving": cs.phase_serving,
        "benchmarks": cs.phase_benchmarks}
 secs, t0 = {}, time.perf_counter()
@@ -54,7 +56,7 @@ print("phase_ab " + json.dumps({"root": sys.argv[1], "seconds": secs,
                                 "card": cs.card_name_power()}), flush=True)
 """
 
-ORDER = ("kernels", "dryrun", "families", "serving", "benchmarks")
+ORDER = ("kernels", "ranks", "dryrun", "families", "serving", "benchmarks")
 
 
 def main(argv: list[str]) -> int:
