@@ -47,6 +47,7 @@ from repro_torch.dist.compression import Compressor
 from repro_torch.net.pfc import PfcConfig
 from repro_torch.net.planner import build_topology
 from repro_torch.net.simulator import FabricSimulator, FailureSpec
+from repro_torch.obs.trace import NULL_SPAN
 
 # byte alignment of each bucket's slot in the packetized wire buffer: the
 # JAX channel's (``XLA_ALIGN``), so padding, per-group bytes and with them
@@ -257,7 +258,10 @@ class InProcessChannel:
         t0 = time.perf_counter()
         with ob.tracer.span("channel.send", args={"step": event.step,
                                                   "channel": self.name}):
-            with ob.tracer.span("bucket.pack", args={"step": event.step}):
+            # a pack of the channel's own only where the event brings the
+            # leaf tree; packed flats were packed (and timed) by the capture
+            with (ob.tracer.span("bucket.pack", args={"step": event.step})
+                  if event.flats is None else NULL_SPAN):
                 flats = to_host(_flats_from_event(self._layout, event))
             self._pending.append(Delivery(
                 step=event.step, lr=event.lr, grad_scale=event.grad_scale,

@@ -19,7 +19,13 @@ Both calls are near-zero-cost no-ops until a session is installed:
 
 The span and metric names are the JAX package's (docs/ARCHITECTURE.md,
 docs/observability.md), the fabric's simulated-time spans and counters
-included.
+included. The port adds spans of its training loop, each with the
+``step`` it serves: ``data.batch`` (the batch drawn and placed on the
+device), ``step.forward`` and ``step.backward`` (each microbatch's),
+``step.optimizer`` (norm, clip and update) and, inside ``capture.d2h``,
+``bucket.pack`` and ``capture.to_host`` (with the ``bytes`` copied off
+the card). The default clock is the one ``torch.profiler`` stamps its
+records with, so a device trace can be read span by span.
 
 CLI: ``python -m repro_torch.obs {trace,summary,diff}``.
 """

@@ -7,8 +7,12 @@ shadow apply, resync, recovery). Two *clock domains* live on separate
 process tracks in the export:
 
 * ``pid 1`` — **host wall clock**: spans timed with the tracer's injected
-  clock (default ``time.perf_counter``; `ManualClock` for deterministic
-  golden traces).
+  clock (`ManualClock` for deterministic golden traces). The default is
+  ``time.time``, the clock (``CLOCK_REALTIME``) that ``torch.profiler``
+  stamps its records with: a span's start in epoch nanoseconds is
+  ``base_ns + ts * 1000``, so spans and a device trace share one time
+  base, and each device operation can be placed in the span open when it
+  was launched.
 * ``pid 2`` — **simulated fabric time**: the event-driven simulator's
   virtual timestamps (`Frame.t_send`/``t_arrive``, `FabricResult
   .duration_s`). Each fabric iteration is laid out after the previous one
@@ -19,6 +23,10 @@ The tracer is *near-zero-cost when disabled*: ``span()`` returns one
 shared no-op context manager and ``instant``/``fabric_span`` return
 immediately, so hot paths may call them unconditionally. ``maxlen`` makes
 the event buffer a ring that keeps only the trailing trace window.
+``threads`` maps each host track to the ids (``threading.get_ident``, the
+``pthread_t`` whose low 32 bits the profiler records as a runtime call's
+thread) of the threads that emitted on it: a launch from one of a shadow
+track's threads is the shadow's.
 """
 from __future__ import annotations
 
@@ -87,13 +95,27 @@ class _Span:
 
 
 class Tracer:
-    """Span/event collector; export() renders Chrome ``trace_event`` JSON."""
+    """Span/event collector; export() renders Chrome ``trace_event`` JSON.
+
+    ``base_ns`` is the default clock's reading at the tracer's origin, in
+    integer nanoseconds since the epoch (None under an injected clock or
+    when disabled); ``threads`` maps each host track to the set of thread
+    ids (``threading.get_ident``) that emitted on it.
+    """
 
     def __init__(self, enabled: bool = True, clock=None,
                  maxlen: Optional[int] = None):
         self.enabled = enabled
-        self._clock = clock if clock is not None else time.perf_counter
-        self._t0 = self._clock() if enabled else 0.0
+        self.base_ns = None
+        self.threads: dict[str, set] = {}
+        if clock is None:
+            self._clock = time.time
+            if enabled:
+                self.base_ns = time.time_ns()
+            self._t0 = self.base_ns * 1e-9 if enabled else 0.0
+        else:
+            self._clock = clock
+            self._t0 = clock() if enabled else 0.0
         self._events = deque(maxlen=maxlen)
         self._tracks: dict[tuple, int] = {}
         self._lock = threading.Lock()
@@ -114,6 +136,9 @@ class Tracer:
         with self._lock:
             self._seq += 1
             seq = self._seq
+            if pid == HOST_PID:
+                self.threads.setdefault(track, set()).add(
+                    threading.get_ident())
         ev = {"name": name, "ph": "X", "cat": cat, "pid": pid,
               "tid": self._tid(pid, track),
               "ts": round(t0_s * 1e6, 3),

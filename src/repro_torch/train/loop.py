@@ -106,6 +106,11 @@ class Capture:
     the copies are awaited. Without ``host`` the device buffers themselves
     are returned, valid until the next call. On the CPU the pack writes a
     fresh host buffer directly.
+
+    The packs are the span ``bucket.pack`` and the copy to the host
+    (allocation, copies and their wait) the span ``capture.to_host``,
+    whose ``bytes`` are the bytes copied off the card; both carry
+    ``step``, the iteration the call serves, which the loop sets.
     """
 
     def __init__(self, layout: BucketLayout, device: torch.device,
@@ -113,22 +118,30 @@ class Capture:
         self.layout = layout
         self.device = device
         self.host = host
+        self.step = 0
         self._dev: dict[int, torch.Tensor] = {}
 
     def __call__(self, grads: dict) -> dict:
+        tracer = _obs.get().tracer
         flats = {}
-        for b in self.layout.buckets:
-            dt = bucket_dtype(b)
-            if self.device.type != "cuda":
-                flats[b.bucket_id] = pack_bucket_into(
-                    b, grads, alloc_flat(b.size, dt))
-                continue
-            buf = self._dev.get(b.bucket_id)
-            if buf is None:
-                buf = self._dev[b.bucket_id] = alloc_flat(b.size, dt,
-                                                          self.device)
-            flats[b.bucket_id] = pack_bucket_into(b, grads, buf)
-        return to_host(flats) if self.host else flats
+        with tracer.span("bucket.pack", args={"step": self.step}):
+            for b in self.layout.buckets:
+                dt = bucket_dtype(b)
+                if self.device.type != "cuda":
+                    flats[b.bucket_id] = pack_bucket_into(
+                        b, grads, alloc_flat(b.size, dt))
+                    continue
+                buf = self._dev.get(b.bucket_id)
+                if buf is None:
+                    buf = self._dev[b.bucket_id] = alloc_flat(
+                        b.size, dt, self.device)
+                flats[b.bucket_id] = pack_bucket_into(b, grads, buf)
+        if not self.host:
+            return flats
+        nbytes = sum(t.nbytes for t in flats.values() if t.is_cuda)
+        with tracer.span("capture.to_host",
+                         args={"step": self.step, "bytes": nbytes}):
+            return to_host(flats)
 
 
 def _flag_straggler(stats: LoopStats, step: int, iter_time: float, ema,
@@ -183,6 +196,7 @@ class RankCapture:
             else None
         self.marks: list = []
         self.received = 0
+        self.step = 0                  # handed to rank 0's `Capture`
 
     def __call__(self, owned: dict) -> Optional[dict]:
         mine = self.plans[self.index]
@@ -210,6 +224,7 @@ class RankCapture:
                 for k, s in self.sh.shapes.items()}
         for plan, f in zip(self.plans, flats):
             _place(full, plan, f)
+        self.inner.step = self.step
         return self.inner(full)
 
 
@@ -415,7 +430,8 @@ def train(cfg: ModelConfig, *,
     step = int(state.step)
     ob = _obs.get()
     while step < steps:
-        dbatch = device_batch(stream.batch_at(step), device)
+        with ob.tracer.span("data.batch", args={"step": step + 1}):
+            dbatch = device_batch(stream.batch_at(step), device)
         if failure_plan.should_fail(step + 1):
             # fail mid-iteration: the device state for this step is lost
             stats.failures += 1
@@ -466,6 +482,7 @@ def train(cfg: ModelConfig, *,
         flats = None
         if capture is not None:
             t1 = time.perf_counter()
+            capture.step = step
             with ob.tracer.span("capture.d2h", args={"step": step}):
                 flats = capture(grads)
             stats.capture_times.append(time.perf_counter() - t1)
@@ -575,8 +592,9 @@ def _train_over_ranks(cfg: ModelConfig, *, steps, batch, seq, opt, lr_fn,
     step = int(state.step)
     ob = _obs.get()
     while step < steps:
-        dbatch = device_batch(stream.batch_at(step), device, rules,
-                              cfg.microbatches)
+        with ob.tracer.span("data.batch", args={"step": step + 1}):
+            dbatch = device_batch(stream.batch_at(step), device, rules,
+                                  cfg.microbatches)
         if failure_plan.should_fail(step + 1):
             stats.failures += 1
             restored = None
@@ -630,6 +648,7 @@ def _train_over_ranks(cfg: ModelConfig, *, steps, batch, seq, opt, lr_fn,
         flats = None
         if capture is not None:
             t1 = time.perf_counter()
+            capture.step = step
             with ob.tracer.span("capture.d2h", args={"step": step}):
                 flats = capture(grads)
             stats.capture_times.append(time.perf_counter() - t1)

@@ -44,6 +44,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs as _obs
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.buckets import TORCH_DTYPES
 from repro_torch.device import resolve
@@ -150,10 +151,13 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
             return registry.loss_fn(tree, cfg, microbatch,
                                     rules=group_rules)
 
-    def local_grads(params: dict, batch: dict, fsdp: dict):
+    def local_grads(params: dict, batch: dict, fsdp: dict, step: int):
         """f32 gradients and loss of this rank's rows, averaged over the
         microbatches; a leaf of ``fsdp``'s gradient is its slice, reduced
-        over the dp ranks in each microbatch's backward."""
+        over the dp ranks in each microbatch's backward. Each microbatch's
+        forward and backward (the accumulation included) are the spans
+        ``step.forward`` and ``step.backward`` of iteration ``step``."""
+        tracer = _obs.get().tracer
         mb = cfg.microbatches
         names = list(params)
         leaves = {k: p.detach().requires_grad_(True)
@@ -166,14 +170,16 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
         grads, loss = None, None
         for i in range(mb):
             one = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-            l = loss_of(leaves, one, fsdp)
-            g = torch.autograd.grad(l, [leaves[k] for k in names])
-            if grads is None:
-                grads, loss = dict(zip(names, g)), l.detach()
-            else:
-                for k, gi in zip(names, g):
-                    grads[k].add_(gi)
-                loss = loss + l.detach()
+            with tracer.span("step.forward", args={"step": step}):
+                l = loss_of(leaves, one, fsdp)
+            with tracer.span("step.backward", args={"step": step}):
+                g = torch.autograd.grad(l, [leaves[k] for k in names])
+                if grads is None:
+                    grads, loss = dict(zip(names, g)), l.detach()
+                else:
+                    for k, gi in zip(names, g):
+                        grads[k].add_(gi)
+                    loss = loss + l.detach()
             del g, l
         if mb > 1:
             d = torch.full((), mb, dtype=torch.float32, device=loss.device)
@@ -182,11 +188,13 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
         return grads, loss
 
     def train_step(state: TrainState, batch: dict):
-        grads, loss = local_grads(state.params, batch, {})
-        gnorm = global_norm(grads)
-        lr = float(lr_fn(state.step))
-        scale = clip_scale(opt, float(gnorm)) if opt.grad_clip else 1.0
-        apply_updates(state, grads, opt, lr, scale)
+        step = state.step + 1
+        grads, loss = local_grads(state.params, batch, {}, step)
+        with _obs.get().tracer.span("step.optimizer", args={"step": step}):
+            gnorm = global_norm(grads)
+            lr = float(lr_fn(state.step))
+            scale = clip_scale(opt, float(gnorm)) if opt.grad_clip else 1.0
+            apply_updates(state, grads, opt, lr, scale)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
                    "grad_scale": scale}
         return state, metrics, grads
@@ -218,7 +226,8 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
         if "mask" in batch:
             raise ValueError("a masked batch over more than one rank needs "
                              "the global mask count; no stream has a mask")
-        grads, loss = local_grads(state.params, batch, fsdp)
+        step = state.step + 1
+        grads, loss = local_grads(state.params, batch, fsdp, step)
         nt = torch.full((), n, dtype=torch.float32, device=loss.device)
         owned = {}
         for k in list(grads):
@@ -244,29 +253,32 @@ def build_train_step(cfg: ModelConfig, opt: OptimizerConfig,
         if n > 1:
             dist.all_reduce(loss, group=group)
             loss = loss / nt
-        gnorm = sharded_global_norm(owned, counted, norm_group)
-        lr = float(lr_fn(state.step))
-        scale = clip_scale(opt, float(gnorm)) if opt.grad_clip else 1.0
-        step = state.step + 1
-        with torch.no_grad():
-            for k, p in state.params.items():
-                ps, z = sh.params[k], sh.state[k]
-                if z.n == 1 or ps.n > 1:
-                    # replicated, or an FSDP slice: the update is local
-                    update_(p, owned[k], state.mu[k], state.nu[k], step,
+        with _obs.get().tracer.span("step.optimizer", args={"step": step}):
+            gnorm = sharded_global_norm(owned, counted, norm_group)
+            lr = float(lr_fn(state.step))
+            scale = clip_scale(opt, float(gnorm)) if opt.grad_clip else 1.0
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    ps, z = sh.params[k], sh.state[k]
+                    if z.n == 1 or ps.n > 1:
+                        # replicated, or an FSDP slice: the update is local
+                        update_(p, owned[k], state.mu[k], state.nu[k], step,
+                                opt, lr, scale)
+                        continue
+                    # ZeRO-1: update this rank's slice, then gather the
+                    # params
+                    d = z.dim
+                    mine = z.dp_local(p).contiguous()
+                    update_(mine, owned[k], state.mu[k], state.nu[k], step,
                             opt, lr, scale)
-                    continue
-                # ZeRO-1: update this rank's slice, then gather the params
-                d = z.dim
-                mine = z.dp_local(p).contiguous()
-                update_(mine, owned[k], state.mu[k], state.nu[k], step, opt,
-                        lr, scale)
-                acc = torch.empty((n, p.numel() // n), dtype=p.dtype,
-                                  device=p.device)
-                acc[mesh.coordinate(dp)].copy_(_to_front(mine, d).reshape(-1))
-                ring_all_gather_(acc, mesh, dp)
-                p.copy_(acc.reshape((p.shape[d],) + tuple(
-                    s for j, s in enumerate(p.shape) if j != d)).movedim(0, d))
+                    acc = torch.empty((n, p.numel() // n), dtype=p.dtype,
+                                      device=p.device)
+                    acc[mesh.coordinate(dp)].copy_(
+                        _to_front(mine, d).reshape(-1))
+                    ring_all_gather_(acc, mesh, dp)
+                    p.copy_(acc.reshape((p.shape[d],) + tuple(
+                        s for j, s in enumerate(p.shape) if j != d))
+                        .movedim(0, d))
         state.step = step
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
                    "grad_scale": scale}

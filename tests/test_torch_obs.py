@@ -188,6 +188,114 @@ def test_train_run_emits_the_named_spans_and_counters():
     assert stats.throughput > 0 and stats.mean_iter > 0
 
 
+def _train_traced(**kw):
+    """Three steps of a reduced tinyllama in 2 microbatches through
+    Checkmate (2 shadow nodes) on the CPU, under whatever plane is
+    installed; returns the loop's stats."""
+    import dataclasses
+    cfg = dataclasses.replace(TC.get("tinyllama-1.1b").reduced(),
+                              microbatches=2)
+    _, stats = train(cfg, steps=3, batch=4, seq=16, device="cpu",
+                     channel=tch.InProcessChannel(), **kw)
+    return stats
+
+
+def _inside(child, parent, eps=2e-3):
+    return (child["tid"] == parent["tid"] and child["ts"] >= parent["ts"]
+            and child["ts"] + child["dur"] <= parent["ts"] + parent["dur"]
+            + eps)
+
+
+def test_train_run_spans_the_batch_the_phases_and_the_capture():
+    with tobs.enabled_session() as ob:
+        _train_traced()
+        evs = ob.tracer.events()
+
+    def named(name):
+        return [e for e in evs if e["name"] == name]
+    for name in ("data.batch", "step.compute", "step.forward",
+                 "step.backward", "step.optimizer", "capture.d2h",
+                 "bucket.pack", "capture.to_host"):
+        assert sorted(e["args"]["step"] for e in named(name)) == sorted(
+            [1, 2, 3] * (2 if name in ("step.forward", "step.backward")
+                         else 1)), name
+    for step in (1, 2, 3):
+        compute = next(e for e in named("step.compute")
+                       if e["args"]["step"] == step)
+        d2h = next(e for e in named("capture.d2h")
+                   if e["args"]["step"] == step)
+        fwd, bwd = ([e for e in named(n) if e["args"]["step"] == step]
+                    for n in ("step.forward", "step.backward"))
+        # the microbatches' forward/backward pairs, in turn, in the step
+        pairs = sorted(fwd + bwd, key=lambda e: e["ts"])
+        assert [e["name"] for e in pairs] == ["step.forward",
+                                              "step.backward"] * 2
+        opt = next(e for e in named("step.optimizer")
+                   if e["args"]["step"] == step)
+        assert all(_inside(e, compute) for e in pairs + [opt])
+        assert opt["ts"] >= pairs[-1]["ts"] + pairs[-1]["dur"]
+        for name in ("bucket.pack", "capture.to_host"):
+            e = next(e for e in named(name) if e["args"]["step"] == step)
+            assert _inside(e, d2h), name
+        # on the CPU the pack writes host buffers: nothing is copied
+        assert next(e for e in named("capture.to_host")
+                    if e["args"]["step"] == step)["args"]["bytes"] == 0
+        batch = next(e for e in named("data.batch")
+                     if e["args"]["step"] == step)
+        assert batch["ts"] + batch["dur"] <= compute["ts"] + 2e-3
+    # the channel adopts the capture's flats: it packs nothing itself
+    sends = named("channel.send")
+    assert not any(_inside(p, s) for p in named("bucket.pack")
+                   for s in sends)
+
+
+def test_channel_opens_bucket_pack_where_it_packs():
+    layout = layout_for_tree({"w": torch.zeros(4, 3)})
+    chan = tch.InProcessChannel()
+    chan.open(layout)
+    grads = {"w": torch.ones(4, 3)}
+    with tobs.enabled_session() as ob:
+        chan.send(tch.StepEvent(step=1, grads=grads))
+        chan.send(tch.StepEvent(step=2, flats=chan.poll()[0].flats))
+        packs = [e["args"]["step"] for e in ob.tracer.events()
+                 if e["name"] == "bucket.pack"]
+    assert packs == [1]
+
+
+def test_disabled_plane_emits_nothing_in_a_train_run():
+    tr = tobs.get().tracer
+    assert not tr.enabled and tr.base_ns is None
+    _train_traced()
+    assert tr.events() == [] and tr.threads == {}
+
+
+def test_tracer_shares_the_profilers_clock_and_names_its_threads():
+    import threading
+    before = time.time_ns()
+    with tobs.enabled_session() as ob:
+        after = time.time_ns()
+        stats = _train_traced(shadow_async=True)
+        tr = ob.tracer
+        workers = {t.ident for t in stats.checkpointer.shadow._workers}
+        evs = tr.events()
+    assert before <= tr.base_ns <= after
+    assert abs(tr.base_ns - time.time_ns()) < 60e9
+    # a span's start in epoch ns: base_ns + ts * 1000, read on time.time
+    with tobs.enabled_session() as ob:
+        t = time.time_ns()
+        with ob.tracer.span("x", args={"step": 1}):
+            pass
+        ev = ob.tracer.events()[0]
+        assert abs(ob.tracer.base_ns + ev["ts"] * 1e3 - t) < 1e6
+    main = threading.get_ident()
+    assert tr.threads["train"] == {main}
+    # each node's applies on its worker thread; the consolidation on ours
+    assert tr.threads["shadow0"] | tr.threads["shadow1"] == workers
+    assert tr.threads["shadow"] == {main} and main not in workers
+    assert {e["name"] for e in evs if e["name"] == "shadow.apply"}
+    assert tobs.Tracer(clock=tobs.ManualClock(0.0)).base_ns is None
+
+
 # -- the CLI ----------------------------------------------------------------
 
 def test_cli_diff_prints_as_repro_obs(tmp_path, capsys):
