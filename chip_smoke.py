@@ -5,9 +5,15 @@
 Phases, in order; any failed check raises and the script exits nonzero:
 
 1. build   — compile the CUDA kernels from src/repro_torch/kernels/csrc;
-             no instance of either flash kernel may spill.
+             no instance of a flash kernel, forward or backward, may spill.
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             (AdamW and pack bitwise, both flash kernels to a tolerance, at
+             (AdamW and pack bitwise, both flash kernels to a tolerance,
+             and at every case on the wgmma route the backward kernel:
+             each of dq, dk, dv within twice the plain bf16 backward's
+             relative error against the plain f32 one, two launches
+             bitwise equal; it is timed at gpt2-1.5b's and vit-h-14's
+             microbatch beside the plain backward and SDPA's, and one
+             call at gpt2's must add under 64 MB of device memory; at
              head dims from 8 to 256 in bf16 and f32, each case on the
              kernel ``route`` names, at every shape phases 8, 9 and 10
              launch (derived from their cells: whisper's 448 x 1500
@@ -396,7 +402,8 @@ def phase_build():
             fn = line.split("Function properties for")[-1].strip()
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
-        if fn and "flash_fwd_kernel" in fn and "spill" in line:
+        if fn and ("flash_fwd_kernel" in fn or "flash_bwd" in fn) \
+                and "spill" in line:
             check(" 0 bytes spill stores, 0 bytes spill loads" in line,
                   f"build: {fn} spills: {line.strip()}")
 
@@ -557,8 +564,50 @@ def flash_cases() -> tuple[list, int]:
     return cases + family, len(family)
 
 
+# the backward's rows: gpt2-1.5b's microbatch (4 x 1024, 25 heads of 64,
+# causal) and vit-h-14's (32 x 256 patches, 16 heads of 80, no mask), the
+# benchmark's cells' shapes, as (b, s, h, kv, d, causal)
+FLASH_BWD_GPT2 = (4, 1024, 25, 25, 64, True)
+FLASH_BWD_VIT = (32, 256, 16, 16, 80, False)
+
+
+def rel_err(x, ref32) -> float:
+    """||x - ref|| / ||ref|| over the whole tensor, in f32."""
+    return ((x.float() - ref32).norm() / ref32.norm().clamp_min(1e-30)).item()
+
+
+def check_flash_bwd(q, k, v, o, lse, do, causal, off, case) -> float:
+    """The backward kernel at one case against the plain backward: each of
+    dq, dk, dv within twice the plain bf16 backward's own relative error
+    against the plain backward in f32 on the same inputs; one launch a
+    call; two launches bitwise equal. Returns the worst ratio of the
+    kernel's error to the plain bf16 one's."""
+    from repro_torch.kernels import ops, ref
+    before = ops.launch_counts()["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal, off)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal, off)
+    n = ops.launch_counts()["flash_attention_bwd"] - before
+    check(n == 2, f"flash bwd {case}: {n} launches for two calls")
+    plain = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, off)
+    f32 = ref.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o)),
+                                      lse, do.float(), causal, off)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, a, pl, w in zip(("dq", "dk", "dv"), got, again, plain, f32):
+        check(torch.equal(g, a), f"flash bwd {case}: {name} differs between "
+                                 f"two launches")
+        ek, ep = rel_err(g, w), rel_err(pl, w)
+        check(ek <= 2.0 * ep, f"flash bwd {case}: {name} relative error "
+                              f"{ek:.3e} > twice the plain bf16 backward's "
+                              f"{ep:.3e}")
+        worst = max(worst, ek / max(ep, 1e-30))
+    del got, again, plain, f32
+    return worst
+
+
 def check_flash(dev) -> dict:
-    """Both flash kernels against the plain version; returns the worst
+    """Both flash kernels against the plain version, and on the wgmma
+    route the backward kernel (`check_flash_bwd`); returns the worst
     error in ``o`` of each kernel and input dtype, keyed "name:dtype"."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import route
@@ -572,6 +621,7 @@ def check_flash(dev) -> dict:
               for b, s, skv, h, kv, d, off in FLASH_OFFSET_CASES
               for dt in (torch.bfloat16, torch.float32)]
     worst, ratios = {}, {}
+    bwd_worst, n_bwd = 0.0, 0
     for case in cases:
         b, s, skv, h, kv, d, dt, causal = case[:8]
         off = case[8] if len(case) > 8 else 0
@@ -596,6 +646,12 @@ def check_flash(dev) -> dict:
         check(ratio <= 1.0, f"flash o {case} err {err}: {ratio:.3f} times "
                             f"the limit {rtol}*|ref| + {atol}")
         check(lerr <= 1e-4, f"flash lse {case} err {lerr} > 1e-4")
+        if name == "flash_attention_wgmma":
+            do = rnd((b, s, h, d), dt)
+            bwd_worst = max(bwd_worst, check_flash_bwd(
+                q, k, v, o, lse, do, causal, off, case))
+            n_bwd += 1
+            del do
         if s >= 1024:
             late = diff[:, s // 2:].max().item()
             size = orf[:, s // 2:].float().abs().mean().item()
@@ -607,6 +663,10 @@ def check_flash(dev) -> dict:
           f"them), {2 * len(FLASH_OFFSET_CASES)} with a q_offset "
           f"(o: 2e-5 f32, 1e-2*|ref| + 1e-4 bf16; lse 1e-4); "
           f"worst share of the limit {ratios}", flush=True)
+    print(f"kernels: flash backward within twice the plain bf16 "
+          f"backward's relative error (against the plain f32 one) on the "
+          f"{n_bwd} wgmma cases, and bitwise the same on a second launch; "
+          f"worst share {bwd_worst:.3f}", flush=True)
     return worst
 
 
@@ -760,11 +820,13 @@ def time_kernels(dev, cfg, errs: dict) -> tuple[list[dict], dict, dict]:
     main_shape = (b, sq, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     rows.append(flash_row(dev, gen, main_shape, torch.bfloat16, errs))
     rows.append(flash_row(dev, gen, main_shape, torch.float32, errs))
+    rows.append(flash_bwd_row(dev, gen, FLASH_BWD_GPT2))
     extra = {label: flash_row(dev, gen, case[:5], case[5], errs)
              for label, case in (("flash_d128", FLASH_D128),
                                  ("flash_f32_d128", FLASH_F32_D128),
                                  ("flash_bf16_d80", FLASH_BF16_D80),
                                  ("flash_prefill", FLASH_PREFILL))}
+    extra["flash_bwd_vit"] = flash_bwd_row(dev, gen, FLASH_BWD_VIT)
     b, sq, skv, h, kv, d, off = FLASH_OFFSET_ROW
     extra["flash_q_offset"] = flash_row(dev, gen, (b, sq, h, kv, d),
                                         torch.bfloat16, errs, skv=skv,
@@ -902,6 +964,77 @@ def flash_row(dev, gen, shape, dt, errs, skv=None, q_offset=0,
     return row
 
 
+def flash_bwd_row(dev, gen, shape) -> dict:
+    """The backward kernel at (b, s, h, kv, d, causal) in bf16, held to
+    the plain backward on the inputs it is timed on (`check_flash_bwd`;
+    ``rel_err_ratio`` is the worst of dq, dk, dv's relative error over the
+    plain bf16 backward's), timed beside the plain backward and SDPA's
+    backward (a yardstick only; the port never calls it), with its bound
+    (`flash_bwd_work`: five products at the bf16 peak, or its bytes at the
+    HBM rate) and the device memory each adds above its inputs and
+    outputs during one call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_bwd_work
+    b, s, h, kv, d, causal = shape
+
+    def rnd(shp, sc=1.0):
+        return (torch.randn(shp, generator=gen, device=dev) * sc).to(
+            torch.bfloat16)
+    q, k, v = rnd((b, s, h, d), 0.3), rnd((b, s, kv, d), 0.3), \
+        rnd((b, s, kv, d))
+    do = rnd((b, s, h, d))
+    o, lse = ops.flash_attention(q, k, v, causal)
+    ratio = check_flash_bwd(q, k, v, o, lse, do, causal, 0, shape)
+
+    def kernel():
+        return ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+
+    def plain():
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+
+    def added_mb(fn) -> float:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        return peak / 1e6
+    kernel_mb, plain_mb = added_mb(kernel), added_mb(plain)
+    check(kernel_mb < 64.0, f"flash bwd {shape}: one call adds {kernel_mb} "
+                            f"MB of device memory, not under 64")
+    qt, kt, vt = (ref.expand_kv(t, h).transpose(1, 2).detach()
+                  .requires_grad_() for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2)
+    flops, nbytes = flash_bwd_work(q, k, causal)
+    bms, by = bound(nbytes, flops, H100_BF16_FLOPS)
+    row = dict(
+        name="flash_attention_bwd",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/layers.py:_flash_bwd",
+        rel_err_ratio=ratio,
+        ms=time_ms(kernel, 10), plain_ms=time_ms(plain, 3, 1),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), 10),
+        shape=[b, s, h, kv, d], dtype="bfloat16",
+        bound_unit="bf16 tensor cores, 989 TFLOP/s", added_mb=kernel_mb,
+        plain_added_mb=plain_mb)
+    if not causal:
+        row.update(causal=False)
+    print(f"timing: flash_attention_bwd {shape}: kernel {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.3f} ms, SDPA backward "
+          f"{row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}); one call "
+          f"adds {kernel_mb:.1f} MB (plain {plain_mb:.1f} MB); relative "
+          f"error {ratio:.4f} times the plain bf16 backward's", flush=True)
+    del q, k, v, o, lse, do, qt, kt, vt, ot, dot
+    torch.cuda.empty_cache()
+    return row
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 # Phase 3's full-width f32 run: tinyllama-1.1b cut to SMALL_LAYERS layers
@@ -1016,6 +1149,9 @@ def small_full_width() -> dict:
     check(launches["flash_attention_mma"] == want,
           f"small: mma.sync flash launched {launches['flash_attention_mma']}"
           f" times at full width, not {want}")
+    check(launches["flash_attention_bwd"] == 0,
+          f"small: the bf16 flash backward launched "
+          f"{launches['flash_attention_bwd']} times on the f32 path")
     check(launches["flash_attention_wgmma"] == 0,
           f"small: wgmma flash launched {launches['flash_attention_wgmma']} "
           f"times on the f32 path")
@@ -1079,6 +1215,10 @@ def phase_main(cfg, steps: int = 6) -> tuple[dict, dict]:
     check(launches["flash_attention_wgmma"] == want,
           f"main: tensor-core flash launched "
           f"{launches['flash_attention_wgmma']} times, not {want}")
+    # one backward per layer and microbatch, every step
+    check(launches["flash_attention_bwd"] == want // 2,
+          f"main: flash backward launched "
+          f"{launches['flash_attention_bwd']} times, not {want // 2}")
     check(launches["flash_attention_mma"] == 0,
           f"main: mma.sync flash launched {launches['flash_attention_mma']} "
           f"times on the bf16 path")
@@ -1385,6 +1525,7 @@ def phase_ranks(cfg) -> dict:
                           f"bitwise the trainer's")
             want = 2 * cut.num_layers * cut.microbatches * stats.steps
             check(launches["flash_attention_wgmma"] == want
+                  and launches["flash_attention_bwd"] == want // 2
                   and launches["flash_attention_mma"] == 0
                   and launches["fused_adamw"] > 0
                   and launches["bucket_pack"] > 0,
@@ -1507,8 +1648,10 @@ def dryrun_yardstick(cfg) -> dict:
     err = predicted / peak - 1.0
     flash = 2 * cut.num_layers * cut.microbatches      # forward and remat
     check(launches["flash_attention_wgmma"] == flash
+          and launches["flash_attention_bwd"] == flash // 2
           and launches["fused_adamw"] == a["kernels"]["fused_adamw"]["calls"]
-          and a["kernels"]["flash_attention"]["calls"] == flash,
+          and a["kernels"]["flash_attention"]["calls"] == flash
+          and a["kernels"]["flash_attention_bwd"]["calls"] == flash // 2,
           f"dryrun: the card's step launched {launches}, the analysis "
           f"recorded {a['kernels']} (flash {flash})")
     check(abs(err) <= DRYRUN_MEMORY_RTOL,
@@ -1691,7 +1834,9 @@ def rank_yardstick(label: str) -> dict:
     shapes = {k: 2 * cut.microbatches * n for k, n in local.items()}
     flash = sum(shapes.values())
     local_s = max(rf.compute_s, rf.memory_s)
+    bwd = a["kernels"].get("flash_attention_bwd", {}).get("calls", 0)
     check(launches["flash_attention_wgmma"] == flash
+          and launches["flash_attention_bwd"] == bwd == flash // 2
           and launches["flash_attention_mma"] == 0
           and a["kernels"].get("flash_attention", {}).get("calls", 0) == flash
           and launches["fused_adamw"] == a["kernels"]["fused_adamw"]["calls"],
@@ -2122,7 +2267,7 @@ def ckpt_run(cfg, name: str, extra: tuple) -> dict:
                                    f"bit ({ck.stall_total} != {total})")
     check(set(ck.stall_stages) <= set(KNOWN_STAGES),
           f"{label}: unknown stages {set(ck.stall_stages)}")
-    for k in ("fused_adamw", "flash_attention_wgmma"):
+    for k in ("fused_adamw", "flash_attention_wgmma", "flash_attention_bwd"):
         check(launches[k] > 0, f"{label}: {k} never launched")
     checkmate = name == "checkmate"
     check((launches["bucket_pack"] > 0) == checkmate,
@@ -2960,9 +3105,11 @@ def harness_full(budget: dict) -> list[dict]:
         st = res.trace.stats
         ran = len(res.trace.ref_losses) + st.steps
         want = 2 * cfg.num_layers * cfg.microbatches * ran
-        check(launches["flash_attention_wgmma"] == want,
+        check(launches["flash_attention_wgmma"] == want
+              and launches["flash_attention_bwd"] == want // 2,
               f"harness: {name}: wgmma flash launched "
-              f"{launches['flash_attention_wgmma']} times, not {want}")
+              f"{launches['flash_attention_wgmma']} times, not {want}; its "
+              f"backward {launches['flash_attention_bwd']}, not {want // 2}")
         check(launches["flash_attention_mma"] == 0,
               f"harness: {name}: mma.sync flash launched "
               f"{launches['flash_attention_mma']} times on the bf16 path")
@@ -3204,9 +3351,11 @@ def family_run(label: str) -> dict:
           f"families: {label} flash calls by shape {dict(seen)}, not the "
           f"predicted {shapes}")
     want = sum(shapes.values())
-    check(launches["flash_attention_wgmma"] == want,
+    check(launches["flash_attention_wgmma"] == want
+          and launches["flash_attention_bwd"] == want // 2,
           f"families: {label} wgmma flash launched "
-          f"{launches['flash_attention_wgmma']} times, not {want}")
+          f"{launches['flash_attention_wgmma']} times, not {want}; its "
+          f"backward {launches['flash_attention_bwd']}, not {want // 2}")
     check(launches["flash_attention_mma"] == 0,
           f"families: {label} mma.sync flash launched "
           f"{launches['flash_attention_mma']} times on a bf16 path")
@@ -3662,8 +3811,10 @@ def phase_benchmarks() -> tuple[dict, dict]:
         check(dict(seen) == shapes,
               f"benchmarks: {label} flash calls by shape {dict(seen)}, not "
               f"the predicted {shapes}")
-        want = dict(counts, flash_attention_mma=0,
-                    flash_attention_wgmma=sum(shapes.values()))
+        # a training run's backward follows its forward and remat
+        want = {"flash_attention_bwd": sum(shapes.values()) // 2, **counts,
+                "flash_attention_mma": 0,
+                "flash_attention_wgmma": sum(shapes.values())}
         for name, n in want.items():
             check(launches[name] == n if n is not None else
                   launches[name] > 0,
@@ -3697,7 +3848,8 @@ def phase_benchmarks() -> tuple[dict, dict]:
                                               torch.bfloat16, True): calls},
                                             {"fused_adamw": calls,
                                              "bucket_pack": calls
-                                             * pack_per_call}))
+                                             * pack_per_call,
+                                             "flash_attention_bwd": 0}))
     lines["kernels"] = dict(rows=rows, seconds=secs,
                             launches=launches)
 
@@ -3859,7 +4011,8 @@ def phase_benchmarks() -> tuple[dict, dict]:
         for a in serve_decode.ARCHS:
             total.update(attention_shapes(_reduced(a), serve_decode.PROMPT,
                                           serve_decode.BATCH))
-        return dict(total), {"fused_adamw": 0, "bucket_pack": 0}
+        return dict(total), {"fused_adamw": 0, "bucket_pack": 0,
+                             "flash_attention_bwd": 0}
     example("serve_decode", lambda: serve_decode.main(["--device", "cuda"]),
             serve_flash)
     facts = example(
@@ -3958,7 +4111,7 @@ def main():
     # bound and, for the mma.sync kernel, the f32 units' bound beside it
     more = ("shape", "skv", "q_offset", "causal", "dtype", "bound_unit",
             "other_bound_ms", "other_bound_by",
-            "other_bound_unit")
+            "other_bound_unit", "added_mb", "plain_added_mb", "rel_err_ratio")
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"ranks": ranks}))
     print(json.dumps({"dryrun": dryrun}))

@@ -29,8 +29,11 @@ SOURCES = {
     "fused_adamw.cu": ["-fmad=false"],
     "flash_attention.cu": [],
     "flash_attention_wgmma.cu": [],
+    "flash_attention_bwd.cu": [],
     "bucket_pack.cu": [],
 }
+# headers the sources include: they enter the library's hash too
+HEADERS = ("hopper.cuh",)
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -57,6 +60,7 @@ SIGNATURES = {
                         _I, _F, _P],
     "repro_flash_fwd_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _F, _P],
+    "repro_flash_bwd_wgmma": [_P] * 10 + [_I] * 8 + [_F, _P],
     "repro_bucket_pack": [PackTable, _P, _P],
 }
 
@@ -108,6 +112,9 @@ def _digest() -> str:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
         h.update(" ".join(ARCH + COMMON + flags).encode())
+    for name in HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 

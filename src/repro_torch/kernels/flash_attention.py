@@ -1,18 +1,22 @@
-"""Flash-attention forward wrapper: a CUDA kernel for tensors on the card,
-the plain version (`ref.flash_attention_ref`) for tensors on the CPU.
+"""Flash-attention wrappers, forward and backward: a CUDA kernel for
+tensors on the card, the plain version (`ref.flash_attention_ref`,
+`ref.flash_attention_bwd_ref`) for tensors on the CPU.
 
-Two kernels, chosen by :func:`route`: the wgmma kernel
+Forward: two kernels, chosen by :func:`route`: the wgmma kernel
 (``csrc/flash_attention_wgmma.cu``) for bf16 at a head_dim that is a multiple
 of 8 up to 128, and the mma.sync kernel (``csrc/flash_attention.cu``, 3xTF32)
 for f32 and for bf16 at any other head_dim up to 256. Each counts its own
-launches.
+launches. It returns ``(o, lse)``: the recompute backward of the model's
+attention (`repro_torch.models.layers.FlashAttention`) needs the row
+log-sum-exp.
 
-On meta tensors (the dry run) it returns ``o`` and ``lse`` as empty meta
-tensors of the kernel's shapes and records the kernel's work
-(`flash_work`) into the step analysis listening, if any.
+Backward: on the "wgmma" route the kernel of ``csrc/flash_attention_bwd.cu``
+(dq, dk, dv from q, k, v, o, lse and do); on the "mma" route (f32, and bf16
+at the other head dims) the plain version, on the card too.
 
-Returns ``(o, lse)``: the recompute backward of the model's attention
-(`repro_torch.models.layers.FlashAttention`) needs the row log-sum-exp.
+On meta tensors (the dry run) each returns empty meta tensors of the
+kernel's shapes and records the kernel's work (`flash_work`,
+`flash_bwd_work`) into the step analysis listening, if any.
 """
 from __future__ import annotations
 
@@ -21,10 +25,12 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_ref)
 
 launches_wgmma = build.LaunchCounter()
 launches_mma = build.LaunchCounter()
+launches_bwd = build.LaunchCounter()
 MAX_HEAD_DIM = 256
 
 
@@ -83,15 +89,45 @@ def flash_work(q, k, causal: bool, q_offset: int = 0
     return flops, nbytes
 
 
+def flash_bwd_work(q, k, causal: bool, q_offset: int = 0
+                   ) -> tuple[float, float]:
+    """(FLOPs, bytes) of one backward: five products (S recomputed, dV, dP,
+    dK, dQ), 2.5 times `flash_work`'s two; q, k, v, o and do read and dq,
+    dk and dv written once in the inputs' dtype, lse and delta read once in
+    f32."""
+    b, sq, h, _ = q.shape
+    flops = 2.5 * flash_work(q, k, causal, q_offset)[0]
+    nbytes = q.element_size() * 4 * (q.numel() + k.numel()) + 8 * b * h * sq
+    return flops, nbytes
+
+
+def _offset(q_offset) -> int:
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    return q_offset
+
+
+def _contiguous(**tensors):
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} is not contiguous")
+
+
+def _aligned(**tensors):
+    """The TMA unit reads from 16-byte aligned addresses."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
+
+
 def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     """q: (b, sq, h, d); k, v: (b, skv, kv, d) with kv dividing h (kv == h
     is pre-expanded kv). Causal masking is top-left (qpos >= kpos), the
     queries at absolute positions ``q_offset + i`` (a rank's rows of a
     sequence-sharded attention); 0 is the plain top-left mask."""
     _check(q, k, v)
-    q_offset = int(q_offset)
-    if q_offset < 0:
-        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    q_offset = _offset(q_offset)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, q_offset)
     if q.device.type == "meta":
@@ -106,9 +142,7 @@ def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     kernel = route(q.dtype, d)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} is not contiguous")
+    _contiguous(q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = build.load()
@@ -116,11 +150,7 @@ def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
             lse.data_ptr(), b, sq, skv, h, hkv, d, int(causal), q_offset)
     stream = build.stream_ptr(q.device)
     if kernel == "wgmma":
-        # the TMA unit reads q, k and v from 16-byte aligned addresses
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"flash_attention: {name} is not 16-byte "
-                                 f"aligned")
+        _aligned(q=q, k=k, v=v)
         code = lib.repro_flash_fwd_wgmma(*args, 1.0 / math.sqrt(d), stream)
         build.check(code, "flash_attention (wgmma)")
         launches_wgmma.add()
@@ -130,3 +160,48 @@ def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
         build.check(code, "flash_attention (mma)")
         launches_mma.add()
     return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        q_offset: int = 0):
+    """dq, dk, dv of `flash_attention` from its inputs, its ``o`` and
+    ``lse`` and the gradient ``do`` of ``o``: q, o, do (b, sq, h, d) and
+    k, v (b, skv, kv, d) in one dtype, lse (b, h, sq) in f32; the mask as
+    the forward's. On the "wgmma" route all six must be contiguous (on
+    meta too, which stands for the card)."""
+    _check(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} "
+                             f"{t.dtype} does not match q {tuple(q.shape)} "
+                             f"{q.dtype}")
+    b, sq, h, d = q.shape
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} is not ({b}, {h}, {sq}) float32")
+    q_offset = _offset(q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal, q_offset)
+    if q.device.type not in ("meta", "cuda"):
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    if route(q.dtype, d) == "mma":      # no kernel: the plain version
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal, q_offset)
+    _contiguous(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    if q.device.type == "meta":
+        build.record_work("flash_attention_bwd",
+                          *flash_bwd_work(q, k, causal, q_offset))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _aligned(q=q, k=k, v=v, o=o, do=do)
+    skv, hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    code = build.load().repro_flash_bwd_wgmma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, hkv, d, int(causal),
+        q_offset, 1.0 / math.sqrt(d), build.stream_ptr(q.device))
+    build.check(code, "flash_attention_bwd (wgmma)")
+    launches_bwd.add()
+    return dq, dk, dv

@@ -13,11 +13,13 @@ from repro_torch.kernels import fused_adamw as _fw
 
 fused_adamw_ = _fw.fused_adamw_
 flash_attention = _fa.flash_attention
+flash_attention_bwd = _fa.flash_attention_bwd
 pack_bucket = _bp.pack
 
 COUNTERS = {"fused_adamw": _fw.launches,
             "flash_attention_wgmma": _fa.launches_wgmma,
             "flash_attention_mma": _fa.launches_mma,
+            "flash_attention_bwd": _fa.launches_bwd,
             "bucket_pack": _bp.launches}
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's three kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each is the function its kernel computes, written with ordinary tensor
 operations. The wrappers run them for tensors on the CPU; on the card they
@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+_NEG = -1e30       # the reference's mask value in the flash backward
 
 
 class AdamWScalars(NamedTuple):
@@ -95,6 +97,36 @@ def flash_attention_ref(q, k, v, causal: bool = True, q_offset: int = 0):
     lse = m + torch.log(l)
     o = torch.einsum("bhqk,bkhd->bqhd", p / l[..., None], ve)
     return o.to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool,
+                            q_offset: int = 0):
+    """Recompute-from-lse backward (the rule of ``repro.models.layers
+    ._flash_bwd``, its ``q_offset`` too) in plain PyTorch, with GQA kv:
+    the expanded kv's gradients are summed back over each kv head's
+    group. q, o, do: (b, sq, h, d); k, v: (b, skv, kv, d); lse: (b, h, sq)
+    f32. Returns (dq, dk, dv) in the inputs' dtypes."""
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    ke, ve = expand_kv(k, h), expand_kv(v, h)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ke.float()) * scale
+    if causal:
+        s = s.masked_fill(~causal_mask(sq, skv, q.device, q_offset), _NEG)
+    p = torch.exp(s - lse[..., None])                       # recomputed
+    del s
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype), do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), ve.float())
+    delta = torch.sum(do.float() * o.float(), dim=-1)       # (b, sq, h)
+    ds = (p * (dp - delta.transpose(1, 2)[..., None]) * scale).to(q.dtype)
+    del p, dp
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, ke)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    if kv != h:
+        g = h // kv
+        dk = dk.float().reshape(b, skv, kv, g, d).sum(3).to(k.dtype)
+        dv = dv.float().reshape(b, skv, kv, g, d).sum(3).to(v.dtype)
+    return dq, dk, dv
 
 
 def bucket_pack_ref(leaves, offsets, out):

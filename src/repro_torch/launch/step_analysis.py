@@ -13,8 +13,8 @@ makes is seen as it is issued. It returns the reference's keys:
 - ``flops_per_device``: the products `FlopCounterMode` counts (matmuls,
   batched matmuls and einsums, forward, backward and the remat forward),
   plus the FLOPs each kernel wrapper records for its kernel on meta
-  tensors (`repro_torch.kernels.build.record_work`: flash's two
-  products). Elementwise work is not counted, as `FlopCounterMode`
+  tensors (`repro_torch.kernels.build.record_work`: the flash forward's
+  two products, its backward's five). Elementwise work is not counted, as `FlopCounterMode`
   counts none. ``flops_by_op`` splits its part by aten op (``"mm"``,
   ``"bmm"``, ...).
 - ``bytes_per_device``: the bytes every aten op reads and writes (each

@@ -25,7 +25,6 @@ import torch.nn.functional as F
 
 from repro_torch.dist import tensor_parallel as TP
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import causal_mask, expand_kv
 
 _NEG = -1e30
 
@@ -50,40 +49,11 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
-                        q_offset: int = 0):
-    """Recompute-from-lse backward (the rule of ``repro.models.layers
-    ._flash_bwd``, its ``q_offset`` too) in plain PyTorch, with GQA kv:
-    the expanded kv's gradients are summed back over each kv head's
-    group."""
-    b, sq, h, d = q.shape
-    skv, kv = k.shape[1], k.shape[2]
-    scale = 1.0 / math.sqrt(d)
-    ke, ve = expand_kv(k, h), expand_kv(v, h)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ke.float()) * scale
-    if causal:
-        s = s.masked_fill(~causal_mask(sq, skv, q.device, q_offset), _NEG)
-    p = torch.exp(s - lse[..., None])                       # recomputed
-    del s
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype), do)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), ve.float())
-    delta = torch.sum(do.float() * o.float(), dim=-1)       # (b, sq, h)
-    ds = (p * (dp - delta.transpose(1, 2)[..., None]) * scale).to(q.dtype)
-    del p, dp
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, ke)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
-    if kv != h:
-        g = h // kv
-        dk = dk.float().reshape(b, skv, kv, g, d).sum(3).to(k.dtype)
-        dv = dv.float().reshape(b, skv, kv, g, d).sum(3).to(v.dtype)
-    return dq, dk, dv
-
-
 class FlashAttention(torch.autograd.Function):
     """Attention whose forward is the flash kernel (o and lse) and whose
-    backward recomputes the probabilities from lse. q: (b, sq, h, d);
-    k, v: (b, skv, kv, d), kv dividing h; causal row i keeps the keys up
-    to ``q_offset + i``."""
+    backward (`ops.flash_attention_bwd`, a kernel too) recomputes the
+    probabilities from lse. q: (b, sq, h, d); k, v: (b, skv, kv, d), kv
+    dividing h; causal row i keeps the keys up to ``q_offset + i``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_offset: int = 0):
@@ -95,8 +65,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         ctx.causal, ctx.q_offset)
+        dq, dk, dv = ops.flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                             ctx.causal, ctx.q_offset)
         return dq, dk, dv, None, None
 
 

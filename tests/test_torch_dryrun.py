@@ -34,7 +34,8 @@ from _torch_spawn import spawn
 from repro_torch import configs as TC
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.dist.sharding import ShardingRules, make_smoke_mesh
-from repro_torch.kernels.flash_attention import flash_work
+from repro_torch.kernels.flash_attention import (causal_pairs, flash_bwd_work,
+                                                 flash_work)
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.step_analysis import analyze_step
@@ -318,14 +319,19 @@ def test_analyze_step_flops_match_the_closed_form():
     # (torch.utils.checkpoint's early stop), before the MLP's down
     # projection, whose output nothing saves
     linear = (L * t * (8 * per_token - 2 * f * d)) + 6 * t * d * v
-    # the plain attention backward: five (b, h, s, s) x d products
-    attn_bwd = L * 5 * 2 * b * h * s * s * hd
     q = torch.empty((b, s, h, hd), device="meta", dtype=torch.bfloat16)
     k = torch.empty((b, s, kv, hd), device="meta", dtype=torch.bfloat16)
     flash = 2 * L * flash_work(q, k, True)[0]        # forward and remat
+    # the backward kernel: five products of 2 b h hd at the causal pairs,
+    # once a layer and microbatch
+    calls = L * cfg.microbatches
+    attn_bwd = calls * 5 * 2 * b * h * hd * causal_pairs(s, s)
+    assert attn_bwd == calls * flash_bwd_work(q, k, True)[0]
     want = linear + attn_bwd + flash
     assert r["kernels"]["flash_attention"]["calls"] == 2 * L
     assert r["kernels"]["flash_attention"]["flops"] == flash
+    assert r["kernels"]["flash_attention_bwd"]["calls"] == calls
+    assert r["kernels"]["flash_attention_bwd"]["flops"] == attn_bwd
     assert abs(r["flops_per_device"] - want) <= 0.01 * want, (
         r["flops_per_device"], want)
 
@@ -377,9 +383,9 @@ def test_moe_step_traces_with_its_experts_over_model(port):
     experts: its batched products are the experts' (E/m) * C * d * fm per
     product, three a layer, counted as the dense closed form counts (the
     forward, the remat forward and a backward of twice the forward: every
-    expert product is recomputed, since the combine saves its output),
-    plus the plain attention backward's five products at this rank's
-    heads; the flash kernel runs twice a layer."""
+    expert product is recomputed, since the combine saves its output); the
+    flash kernel runs twice a layer and microbatch, its backward once, with
+    five products at this rank's heads and the causal pairs."""
     from repro_torch.models import moe
     cfg = TC.get("arctic-480b").reduced()
     r = port["moe"]
@@ -390,12 +396,13 @@ def test_moe_step_traces_with_its_experts_over_model(port):
     c = moe.capacity(cfg, t)
     experts = cfg.num_experts // m
     product = 2 * experts * c * cfg.d_model * cfg.moe_d_ff
-    attn_bwd = 5 * 2 * rows * (cfg.num_heads // m) * s * s * cfg.head_dim
-    want = cfg.num_layers * cfg.microbatches * (
-        3 * (1 + 1 + 2) * product + attn_bwd)
-    assert r["flops_by_op"]["bmm"] == want
-    assert r["kernels"]["flash_attention"]["calls"] == \
-        2 * cfg.num_layers * cfg.microbatches
+    attn_bwd = (5 * 2 * rows * (cfg.num_heads // m) * cfg.head_dim
+                * causal_pairs(s, s))
+    calls = cfg.num_layers * cfg.microbatches
+    assert r["flops_by_op"]["bmm"] == calls * 3 * (1 + 1 + 2) * product
+    assert r["kernels"]["flash_attention"]["calls"] == 2 * calls
+    assert r["kernels"]["flash_attention_bwd"]["calls"] == calls
+    assert r["kernels"]["flash_attention_bwd"]["flops"] == calls * attn_bwd
     # the experts' partial sums, the attention, the residual and the vocab
     # all-reduced over model; the counts over data; the ring over data
     assert r["per_collective"]["allreduce_"] > 0
